@@ -1,9 +1,10 @@
-"""Model configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-A field-for-field copy of ``podtpu.core.config.ModelConfig``, so that a
-``config.json`` written by either package loads in the other.  The port
+Field-for-field copies of ``podtpu.core.config``'s ``ModelConfig``,
+``TrainConfig``, ``DataConfig``, ``CvatConfig`` and ``Config``, so that a
+configuration written by either package loads in the other.  The port
 builds only the ``faster_rcnn`` / ``resnet50_fpn`` / ``box_head_type="mlp"``
-eval path so far (``models.detector.make_detector`` refuses the rest); the
+model so far (``models.detector.make_detector`` refuses the rest); the
 other fields are carried so that saved configurations round-trip unchanged.
 """
 from __future__ import annotations
@@ -136,15 +137,110 @@ class ModelConfig:
         return tuple(self.strides)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimisation and schedule.  Defaults mirror the reference trainer
+    (torch SGD lr 0.005, momentum 0.9, weight decay 5e-4; Adam lr 1e-3).
+    ``steps_per_dispatch`` and ``cache_gather`` select the JAX package's
+    device-cache mechanisms; the port carries them for round trips."""
+
+    batch_size: int = 2
+    optimiser: str = "sgd"  # 'sgd' | 'adam' | 'adamw'
+    lr: float = 0.005
+    momentum: float = 0.9
+    # "float32" or "bfloat16": the SGD momentum buffer's storage type; the
+    # update computes in float32 either way.
+    momentum_dtype: str = "float32"
+    fused_sgd: bool = False
+    steps_per_dispatch: int = 8
+    cache_gather: str = "slice"
+    weight_decay: float = 0.0005
+    adam_lr: float = 0.001
+    # Weight decay of normalisation parameters; None: they decay with the
+    # rest.
+    norm_weight_decay: object = None
+    # Epoch-0 linear warmup.
+    warmup_iters: int = 1000
+    warmup_start_factor: float = 1.0 / 1000.0
+    # ALRS early stopping.
+    alrs_factor: float = 0.5
+    alrs_drops: int = 4
+    alrs_epochs: int = 10
+    alrs_startup_factor: int = 2
+    max_epochs: int = 500
+    lr_schedule: str = "alrs"  # 'alrs' | 'multistep' | 'cosine'
+    epochs: int = 26
+    lr_steps: Tuple[int, ...] = (16, 22)
+    lr_gamma: float = 0.1
+    split_fraction: float = 0.2
+    split_seed: int = 1
+    nan_is_fatal: bool = True
+    log_every: int = 10
+    clip_grad_norm: object = None  # global-norm cap; None: no clipping
+    calibrate_bn: object = "auto"
+    zero_map_warn_epochs: int = 5
+    abort_on_zero_map: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline knobs."""
+
+    num_workers: int = 4
+    prefetch: int = 2
+    # 'miso' (hflip + vflip + photometric distortion), 'hflip', 'none';
+    # 'lsj', 'multiscale', 'ssd', 'ssdlite' are not ported yet.
+    aug_policy: str = "miso"
+    hflip_prob: float = 0.5
+    vflip_prob: float = 0.5
+    photometric_distort: bool = True
+    device_prefetch: bool = False
+    copy_paste: bool = False
+    decode_cache: object = "auto"
+    device_data_cache: object = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class CvatConfig:
+    """CVAT server connection."""
+
+    server: str = "http://cvat:8080"
+    username: str = "admin"
+    password: str = "admin"
+    api: str = "v1"
+    is_wsl2: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    cvat: CvatConfig = dataclasses.field(default_factory=CvatConfig)
+
+
+def _detuple(v):
+    if isinstance(v, list):
+        return tuple(_detuple(x) for x in v)
+    return v
+
+
+def _from_dict(cls, cfg_dict: Dict):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: _detuple(v) if k in fields else v
+                  for k, v in cfg_dict.items()})
+
+
 def model_config_from_dict(cfg_dict: Dict) -> ModelConfig:
     """Rebuild a ModelConfig from its JSON form (lists back to tuples, nested
     per-level anchor sizes included)."""
-    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    return _from_dict(ModelConfig, cfg_dict)
 
-    def detuple(v):
-        if isinstance(v, list):
-            return tuple(detuple(x) for x in v)
-        return v
 
-    return ModelConfig(**{k: detuple(v) if k in fields else v
-                          for k, v in cfg_dict.items()})
+def config_from_dict(cfg_dict: Dict) -> Config:
+    """Rebuild a Config from ``dataclasses.asdict`` of either package's
+    ``Config`` after a JSON round trip."""
+    return Config(model=model_config_from_dict(cfg_dict.get("model", {})),
+                  train=_from_dict(TrainConfig, cfg_dict.get("train", {})),
+                  data=_from_dict(DataConfig, cfg_dict.get("data", {})),
+                  cvat=_from_dict(CvatConfig, cfg_dict.get("cvat", {})))

@@ -1,16 +1,21 @@
-"""Faster R-CNN ResNet-50-FPN, eval forward.
+"""Faster R-CNN ResNet-50-FPN: eval forward and training losses.
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
-``resnet50_fpn`` backbone with the MLP box head, eval path, and
-``make_detector``).  The forward takes ``[B, H, W, 3]`` images (uint8, or
-float in [0, 1]) like the JAX model, normalises them in float32 and runs the
-network on NCHW tensors in ``torch.channels_last`` memory.  Capacities are
-static: ``rpn_post_nms_topk_test`` proposals and ``detections_per_image``
-detections per image, with validity masks.
+``resnet50_fpn`` backbone with the MLP box head, and ``make_detector``).
+The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
+the JAX model, normalises them in float32 and runs the network on NCHW
+tensors in ``torch.channels_last`` memory.  Capacities are static:
+``rpn_post_nms_topk_*`` proposals and ``detections_per_image`` detections
+per image, with validity masks.
+
+Given ground truth, the forward returns the four training losses instead of
+detections.  Its random decisions (the RPN's and the RoI head's sampler
+draws) are the explicit tensors of :class:`ModelDraws`, made by
+:func:`draw_model` from a ``torch.Generator`` or handed in by a caller.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -33,7 +38,8 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         dt = _DTYPES[cfg.compute_dtype]
         self.backbone = BackboneWithFPN(
-            ResNet((3, 4, 6, 3), compute_dtype=dt),
+            ResNet((3, 4, 6, 3), compute_dtype=dt,
+                   trainable_stages=cfg.trainable_backbone_stages),
             FeaturePyramidNetwork((256, 512, 1024, 2048), cfg.fpn_channels,
                                   compute_dtype=dt))
         anchors = grid_anchors(tuple(cfg.image_size), tuple(cfg.strides),
@@ -59,10 +65,22 @@ class FasterRCNN(nn.Module):
         x = (x - self.pixel_mean) / self.pixel_std
         return self.backbone(x.contiguous(memory_format=torch.channels_last))
 
-    def forward(self, images: torch.Tensor) -> rh.Detections:
+    def forward(self, images: torch.Tensor, gt: Optional[Dict] = None,
+                draws: Optional["ModelDraws"] = None,
+                generator: Optional[torch.Generator] = None):
+        """Detections of ``[B, H, W, 3]`` images; with ``gt`` (``boxes
+        [B, G, 4]``, ``labels [B, G]``, ``valid [B, G]``, optional
+        ``image_weight [B]``) the dict of training losses, with the
+        sampler draws ``draws`` or, if None, draws from ``generator``."""
         cfg = self.cfg
         pyramid = self.features(images)
         level_logits, level_deltas = self.rpn.head(pyramid)
+        if gt is not None:
+            if draws is None:
+                draws = draw_model(generator, cfg, images.shape[0],
+                                   gt["boxes"].shape[1])
+            return self._losses(pyramid, level_logits, level_deltas, gt,
+                                draws)
         proposals = rpn_lib.select_proposals(
             level_logits, level_deltas, self.rpn.anchors(), cfg, train=False)
         pooled = rh.pool_rois_batched(pyramid, proposals.boxes, cfg)
@@ -72,6 +90,67 @@ class FasterRCNN(nn.Module):
         return rh.postprocess_detections(
             logits.reshape(b, p, -1), deltas.reshape(b, p, -1),
             proposals.boxes, proposals.valid, cfg)
+
+    def _losses(self, pyramid, level_logits, level_deltas, gt, draws):
+        cfg = self.cfg
+        anchors = self.rpn.anchors()
+        # Proposals carry no gradient (torchvision): none flows from the
+        # RoI head through box coordinates into the RPN.
+        with torch.no_grad():
+            proposals = rpn_lib.select_proposals(
+                level_logits, level_deltas, anchors, cfg, train=True)
+        img_w = gt.get("image_weight")
+        obj_loss, rpn_box_loss = rpn_lib.rpn_losses(
+            level_logits, level_deltas, torch.cat(anchors), gt["boxes"],
+            gt["valid"], cfg, draws.rpn_pos, draws.rpn_neg,
+            img_weight=img_w)
+        sampled = rh.sample_rois(proposals.boxes, proposals.valid,
+                                 gt["boxes"], gt["labels"], gt["valid"], cfg,
+                                 draws.roi_pos, draws.roi_neg)
+        pooled = rh.pool_rois_batched(pyramid, sampled.boxes, cfg)
+        b, s = pooled.shape[:2]
+        logits, deltas = self.roi_heads(pooled.reshape(b * s,
+                                                       *pooled.shape[2:]))
+        flat = rh.SampledRois(*(x.reshape(b * s, *x.shape[2:])
+                                for x in sampled))
+        sw = None if img_w is None else img_w.repeat_interleave(s)
+        cls_loss, box_loss = rh.box_head_losses(logits, deltas, flat,
+                                                sample_weight=sw)
+        return {"loss_objectness": obj_loss,
+                "loss_rpn_box_reg": rpn_box_loss,
+                "loss_classifier": cls_loss,
+                "loss_box_reg": box_loss}
+
+
+class ModelDraws(NamedTuple):
+    """Uniform draws of the two samplers, one per candidate."""
+    rpn_pos: torch.Tensor  # [B, N_anchors]
+    rpn_neg: torch.Tensor  # [B, N_anchors]
+    roi_pos: torch.Tensor  # [B, P + G]: post-NMS proposals, then the gts
+    roi_neg: torch.Tensor  # [B, P + G]
+
+
+def num_anchors(cfg: ModelConfig) -> int:
+    return sum(len(a) for a in grid_anchors(
+        tuple(cfg.image_size), tuple(cfg.strides), tuple(cfg.anchor_sizes),
+        tuple(cfg.anchor_ratios)))
+
+
+def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
+               batch: int, num_gt: int) -> ModelDraws:
+    """The samplers' draws for ``batch`` images with ``num_gt`` gt slots
+    each, on ``generator``'s device."""
+    if generator is None:
+        raise ValueError("training needs a torch.Generator or explicit draws")
+    n = num_anchors(cfg)
+    m = cfg.rpn_post_nms_topk_train + num_gt
+
+    def u(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device)
+
+    return ModelDraws(rpn_pos=u(batch, n), rpn_neg=u(batch, n),
+                      roi_pos=u(batch, m), roi_neg=u(batch, m))
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:

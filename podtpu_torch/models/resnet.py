@@ -7,7 +7,13 @@ follow torchvision (``conv1``, ``bn1``, ``layer1.0.conv1``,
 
 Parameters are float32; each conv runs in the model's compute dtype with its
 input and weight cast per call, as flax's ``dtype=bf16, param_dtype=f32``
-does.  Tensors are NCHW in ``torch.channels_last`` memory.
+does, and autograd returns float32 gradients to them.  Tensors are NCHW in
+``torch.channels_last`` memory.
+
+``trainable_stages`` counts the trailing components of [stem, layer1,
+layer2, layer3, layer4] that train: the others' parameters have
+``requires_grad=False`` and their outputs are detached, as the JAX model's
+``stop_gradient`` below frozen components.
 """
 from __future__ import annotations
 
@@ -89,9 +95,12 @@ class ResNet(nn.Module):
     """ResNet returning C2..C5 (strides 4, 8, 16, 32)."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 trainable_stages: int = 5):
         super().__init__()
         self.compute_dtype = compute_dtype
+        # Components [0, freeze_from) of [stem, layer1, ...] are frozen.
+        self.freeze_from = 5 - trainable_stages
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             compute_dtype=compute_dtype)
         self.bn1 = FrozenBatchNorm2d(64)
@@ -106,14 +115,23 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
             planes *= 2
         self.num_stages = len(stage_sizes)
+        # The stem's norm bn1 holds buffers only.
+        frozen = (["conv1"] if self.freeze_from > 0 else []) + [
+            f"layer{s}" for s in range(1, self.freeze_from)]
+        for name in frozen:
+            getattr(self, name).requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         h = F.relu(self.bn1(self.conv1(x.to(self.compute_dtype))))
         # 3x3/s2 max pool with implicit -inf padding, as flax's max_pool.
         h = F.max_pool2d(h, 3, stride=2, padding=1)
+        if self.freeze_from > 0:
+            h = h.detach()
         outs = []
         for stage in range(self.num_stages):
             h = getattr(self, f"layer{stage + 1}")(h)
+            if stage + 1 < self.freeze_from:
+                h = h.detach()
             outs.append(h)
         return outs
 

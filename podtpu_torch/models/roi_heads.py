@@ -1,7 +1,9 @@
-"""RoI box head, RoI pooling and detection postprocess (eval path).
+"""RoI box head, RoI pooling, training targets and losses, and detection
+postprocess.
 
 Counterpart of ``podtpu/models/roi_heads.py``: ``BoxHead`` (torchvision's
-TwoMLPHead + FastRCNNPredictor), ``postprocess_detections`` and
+TwoMLPHead + FastRCNNPredictor), ``sample_rois`` and ``box_head_losses``
+(batched over images here, vmapped there), ``postprocess_detections`` and
 ``pool_rois_batched``.  Module names follow torchvision
 (``box_head.fc6``, ``box_predictor.cls_score``).  fc6 consumes the pooled
 features flattened as (C, H, W), torchvision's order, so its weight is in
@@ -17,8 +19,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.core.config import ModelConfig
-from podtpu_torch.models.rpn import stable_topk
+from podtpu_torch.models.rpn import smooth_l1
 from podtpu_torch.ops import boxes as box_ops
+from podtpu_torch.ops import matching
+from podtpu_torch.ops.matching import stable_topk
 from podtpu_torch.ops.nms import NEG_INF, nms_keep_segments
 from podtpu_torch.ops.roi_align import batched_roi_align
 
@@ -122,6 +126,73 @@ def postprocess_detections(logits: torch.Tensor, deltas: torch.Tensor,
         scores=torch.where(valid, top, torch.zeros_like(top)),
         labels=torch.where(valid, labels, torch.zeros_like(labels)),
         valid=valid)
+
+
+class SampledRois(NamedTuple):
+    boxes: torch.Tensor        # [B, S, 4]
+    valid: torch.Tensor        # [B, S]
+    is_pos: torch.Tensor       # [B, S]
+    cls_targets: torch.Tensor  # [B, S] int64, 0 = background
+    reg_targets: torch.Tensor  # [B, S, 4]
+
+
+@torch.no_grad()
+def sample_rois(proposals: torch.Tensor, prop_valid: torch.Tensor,
+                gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                gt_valid: torch.Tensor, cfg: ModelConfig, u_pos: torch.Tensor,
+                u_neg: torch.Tensor) -> SampledRois:
+    """Training RoI subsample: the gt boxes are appended to the ``[B, P, 4]``
+    proposals (every gt then has a perfectly overlapping positive), matched
+    without low-quality matches, and ``box_batch_per_image`` of the
+    ``P + G`` candidates sampled with the draws ``u_pos``/``u_neg
+    [B, P + G]``."""
+    boxes = torch.cat([proposals, gt_boxes], 1)
+    valid = torch.cat([prop_valid, gt_valid], 1)
+    iou = box_ops.box_iou(boxes, gt_boxes)
+    m = matching.match(iou, gt_valid, cfg.box_fg_iou, cfg.box_bg_iou,
+                       allow_low_quality=False)
+    labels = torch.where(valid, m.labels, -1)  # padded candidates: ignored
+    samp = matching.balanced_sample_gather(
+        labels, valid, cfg.box_batch_per_image, cfg.box_positive_fraction,
+        u_pos, u_neg)
+    sboxes = torch.gather(boxes, 1, samp.idx[..., None].expand(-1, -1, 4))
+    matched = torch.gather(m.matched_idx, 1, samp.idx)
+    cls_t = torch.where(samp.is_pos, torch.gather(gt_labels.long(), 1,
+                                                  matched), 0)
+    cls_t = torch.where(samp.valid, cls_t, 0)
+    matched_gt = torch.gather(gt_boxes, 1, matched[..., None].expand(-1, -1, 4))
+    reg_t = box_ops.encode_boxes(matched_gt, sboxes,
+                                 weights=cfg.box_reg_weights)
+    return SampledRois(
+        boxes=torch.where(samp.valid[..., None], sboxes,
+                          torch.zeros_like(sboxes)),
+        valid=samp.valid, is_pos=samp.is_pos, cls_targets=cls_t,
+        reg_targets=reg_t)
+
+
+def box_head_losses(logits: torch.Tensor, deltas: torch.Tensor,
+                    rois: SampledRois,
+                    sample_weight: Optional[torch.Tensor] = None):
+    """Classification and box-regression losses over ``[N, C]`` logits and
+    ``[N, 4C]`` deltas of ``N = B * S`` sampled RoIs (``rois`` fields
+    flattened the same way), normalised as torchvision's ``fastrcnn_loss``:
+    mean cross-entropy over the samples; box loss summed over positives,
+    over the sample count.  ``sample_weight [N]`` scales each sample."""
+    n, c = logits.shape
+    w = rois.valid.float()
+    if sample_weight is not None:
+        w = w * sample_weight
+    total = w.sum().clamp(min=1.0)
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, 1, rois.cls_targets[:, None])[:, 0]
+    cls_loss = (ce * w).sum() / total
+    picked = torch.gather(deltas.reshape(n, c, 4), 1,
+                          rois.cls_targets[:, None, None].expand(-1, 1, 4))
+    pw = (rois.is_pos & rois.valid).float()
+    if sample_weight is not None:
+        pw = pw * sample_weight
+    l1 = smooth_l1(picked[:, 0] - rois.reg_targets, 1.0 / 9.0).sum(-1)
+    return cls_loss, (l1 * pw).sum() / total
 
 
 def pool_rois_batched(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,

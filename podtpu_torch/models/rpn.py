@@ -1,15 +1,17 @@
 """Region Proposal Network: shared head and static-shape proposal selection.
 
-Counterpart of ``podtpu/models/rpn.py`` (eval path; the losses come with the
-training slice).  Per level: top ``pre_k`` anchors by objectness, decode,
-clip, size filter; one NMS per (image, level) at ``rpn_nms_thresh``, all of
-them in one kernel launch; then the global top ``post_k``.  Top-k is a
-stable descending sort, so ties go to the lower index as in ``lax.top_k``.
+Counterpart of ``podtpu/models/rpn.py``.  Per level: top ``pre_k`` anchors
+by objectness, decode, clip, size filter; one NMS per (image, level) at
+``rpn_nms_thresh``, all of them in one kernel launch; then the global top
+``post_k``.  Top-k is a stable descending sort, so ties go to the lower
+index as in ``lax.top_k``.  :func:`rpn_losses` is the training loss: match
+every anchor to the gt boxes, sample 256 anchors per image, and take the
+objectness BCE and the smooth-L1 box loss over the sampled ones only.
 """
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,13 +20,9 @@ from torch import nn
 from podtpu_torch.core.config import ModelConfig
 from podtpu_torch.models.resnet import Conv2d
 from podtpu_torch.ops import boxes as box_ops
+from podtpu_torch.ops import matching
+from podtpu_torch.ops.matching import stable_topk
 from podtpu_torch.ops.nms import NEG_INF, nms_keep_segments
-
-
-def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top ``k`` along the last axis, descending, ties to the lower index."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
 
 
 class RPNHead(nn.Module):
@@ -128,3 +126,64 @@ def select_proposals(level_logits: Sequence[torch.Tensor],
                           torch.zeros_like(out_boxes)),
         scores=torch.where(out_valid, top, torch.zeros_like(top)),
         valid=out_valid)
+
+
+def smooth_l1(x: torch.Tensor, beta: float) -> torch.Tensor:
+    ax = x.abs()
+    return torch.where(ax < beta, 0.5 * x * x / beta, ax - 0.5 * beta)
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid cross-entropy, ``max(x, 0) - x z + log1p(e^-|x|)``
+    (optax's formula)."""
+    return (torch.clamp(logits, min=0.0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def rpn_losses(level_logits: Sequence[torch.Tensor],
+               level_deltas: Sequence[torch.Tensor],
+               all_anchors: torch.Tensor, gt_boxes: torch.Tensor,
+               gt_valid: torch.Tensor, cfg: ModelConfig, u_pos: torch.Tensor,
+               u_neg: torch.Tensor,
+               img_weight: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RPN objectness and box losses, normalised like torchvision: sums
+    over the sampled anchors of the batch over their count.
+
+    ``all_anchors [N, 4]``; ``gt_boxes [B, G, 4]``, ``gt_valid [B, G]``;
+    ``u_pos``/``u_neg [B, N]`` are the sampler's uniform draws.  Matching
+    and sampling run without autograd (the ``[B, N, G]`` IoU is large);
+    the losses are taken on the gathered ``rpn_batch_per_image`` entries.
+    """
+    logits = torch.cat(list(level_logits), dim=1)    # [B, N]
+    deltas = torch.cat(list(level_deltas), dim=1)    # [B, N, 4]
+    with torch.no_grad():
+        iou = box_ops.box_iou(all_anchors[None], gt_boxes)
+        m = matching.match(iou, gt_valid, cfg.rpn_fg_iou, cfg.rpn_bg_iou,
+                           allow_low_quality=True)
+        del iou
+        samp = matching.balanced_sample_gather(
+            m.labels, torch.ones_like(u_pos, dtype=torch.bool),
+            cfg.rpn_batch_per_image, cfg.rpn_positive_fraction, u_pos, u_neg)
+        sel_anchors = all_anchors[samp.idx]                      # [B, S, 4]
+        gt_idx = torch.gather(m.matched_idx, 1, samp.idx)
+        sel_gt = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(-1, -1, 4))
+        targets = box_ops.encode_boxes(sel_gt, sel_anchors)
+        w = samp.valid.float()
+        pw = (samp.is_pos & samp.valid).float()
+    # Gather the sampled entries, then cast (the head emits bf16).
+    sel_logits = torch.gather(logits, 1, samp.idx).float()
+    sel_deltas = torch.gather(deltas, 1,
+                              samp.idx[..., None].expand(-1, -1, 4)).float()
+    obj_sums = (sigmoid_bce(sel_logits, pw) * w).sum(-1)
+    box_sums = (smooth_l1(sel_deltas - targets, 1.0 / 9.0).sum(-1)
+                * pw).sum(-1)
+    counts = w.sum(-1)
+    if img_weight is not None:
+        # Zero the wrap-around duplicate images a static-shape loader pads
+        # its last batch with.
+        obj_sums = obj_sums * img_weight
+        box_sums = box_sums * img_weight
+        counts = counts * img_weight
+    total = counts.sum().clamp(min=1.0)
+    return obj_sums.sum() / total, box_sums.sum() / total

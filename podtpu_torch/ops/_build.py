@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "podtpu_torch"
 LIB_NAME = "libpodtpu_torch_kernels.so"
 # No --use_fast_math: the NMS keep mask must match its plain version bit for
-# bit, which needs IEEE division.
+# bit, which needs IEEE division, and RoIAlign's sample positions must equal
+# the plain version's.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -120,6 +121,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.podtpu_roi_align_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          i32, i32, vp]
     lib.podtpu_roi_align_fwd.restype = i32
+    lib.podtpu_roi_align_bwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, i32, vp]
+    lib.podtpu_roi_align_bwd.restype = i32
     lib.podtpu_error_string.argtypes = [i32]
     lib.podtpu_error_string.restype = ctypes.c_char_p
 

@@ -29,6 +29,28 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 
+def encode_boxes(reference: torch.Tensor, proposals: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """(dx, dy, dw, dh) regression targets of ``reference`` boxes relative
+    to ``proposals``; proposal and target sizes are floored at 1e-6."""
+    wx, wy, ww, wh = weights
+    pw = proposals[..., 2] - proposals[..., 0]
+    ph = proposals[..., 3] - proposals[..., 1]
+    pcx = proposals[..., 0] + 0.5 * pw
+    pcy = proposals[..., 1] + 0.5 * ph
+    gw = reference[..., 2] - reference[..., 0]
+    gh = reference[..., 3] - reference[..., 1]
+    gcx = reference[..., 0] + 0.5 * gw
+    gcy = reference[..., 1] + 0.5 * gh
+    pw = pw.clamp(min=1e-6)
+    ph = ph.clamp(min=1e-6)
+    dx = wx * (gcx - pcx) / pw
+    dy = wy * (gcy - pcy) / ph
+    dw = ww * torch.log(gw.clamp(min=1e-6) / pw)
+    dh = wh * torch.log(gh.clamp(min=1e-6) / ph)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def decode_boxes(codes: torch.Tensor, anchors: torch.Tensor,
                  weights=(1.0, 1.0, 1.0, 1.0),
                  clip: float = BBOX_XFORM_CLIP) -> torch.Tensor:

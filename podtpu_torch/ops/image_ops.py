@@ -1,0 +1,150 @@
+"""Device-side augmentation on batches of ``[B, H, W, 3]`` float images.
+
+Counterpart of ``podtpu/ops/image_ops.py`` (``hflip``, ``vflip``,
+``rgb_to_hsv``, ``hsv_to_rgb``, ``photometric_distort``), batched with one
+decision per image: each transform is computed for the whole batch and
+selected per image with ``torch.where``, as the JAX package selects inside
+its vmap.  The random numbers are the explicit tensors of
+:class:`PhotometricDraws`; :func:`draw_photometric` makes them from a
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+# torchvision RandomPhotometricDistort ranges.
+BRIGHTNESS = (0.875, 1.125)
+CONTRAST = (0.5, 1.5)
+SATURATION = (0.5, 1.5)
+HUE = (-18 / 360.0, 18 / 360.0)
+
+
+def hflip(images: torch.Tensor, boxes: torch.Tensor, width: float):
+    """Horizontal flip of ``[B, H, W, C]`` images and ``[B, G, 4]`` xyxy
+    boxes."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return images.flip(2), torch.stack([width - x2, y1, width - x1, y2], -1)
+
+
+def vflip(images: torch.Tensor, boxes: torch.Tensor, height: float):
+    """Vertical flip of ``[B, H, W, C]`` images and ``[B, G, 4]`` boxes."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return images.flip(1), torch.stack([x1, height - y2, x2, height - y1], -1)
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    r, g, b = rgb.unbind(-1)
+    maxc = rgb.amax(-1)
+    minc = rgb.amin(-1)
+    rng = maxc - minc
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, rng / maxc.clamp(min=1e-12), zero)
+    safe = rng.clamp(min=1e-12)
+    rc = (maxc - r) / safe
+    gc = (maxc - g) / safe
+    bc = (maxc - b) / safe
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = (h / 6.0) % 1.0
+    h = torch.where(rng == 0, zero, h)
+    return torch.stack([h, s, maxc], -1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    h, s, v = hsv.unbind(-1)
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    sector = (i.long() % 6)[..., None]
+
+    def pick(*options):
+        return torch.gather(torch.stack(options, -1), -1, sector)[..., 0]
+
+    return torch.stack([pick(v, q, p, p, t, v), pick(t, v, v, q, p, p),
+                        pick(p, p, t, v, v, q)], -1)
+
+
+class PhotometricDraws(NamedTuple):
+    """Per image ``[B]``: the factors of each jitter, the uniforms that
+    decide whether it applies (``< p``) and whether contrast comes first
+    (``< 0.5``), and a channel permutation ``[B, 3]``."""
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+    apply_brightness: torch.Tensor
+    contrast_first: torch.Tensor
+    apply_contrast: torch.Tensor
+    apply_saturation: torch.Tensor
+    apply_hue: torch.Tensor
+    permutation: torch.Tensor  # [B, 3] int64
+    apply_permutation: torch.Tensor
+
+
+def draw_photometric(generator: torch.Generator,
+                     batch: int) -> PhotometricDraws:
+    dev = generator.device
+
+    def u(lo=0.0, hi=1.0):
+        x = torch.rand(batch, generator=generator, device=dev)
+        return lo + x * (hi - lo)
+
+    fields = dict(brightness=u(*BRIGHTNESS), contrast=u(*CONTRAST),
+                  saturation=u(*SATURATION), hue=u(*HUE))
+    for name in ("apply_brightness", "contrast_first", "apply_contrast",
+                 "apply_saturation", "apply_hue"):
+        fields[name] = u()
+    fields["permutation"] = torch.argsort(
+        torch.rand((batch, 3), generator=generator, device=dev), -1)
+    fields["apply_permutation"] = u()
+    return PhotometricDraws(**fields)
+
+
+def _per_image(x: torch.Tensor) -> torch.Tensor:
+    return x.view(-1, 1, 1, 1)
+
+
+def _grey(img: torch.Tensor) -> torch.Tensor:
+    """ITU-R 601 luma ``[B, H, W, 1]``."""
+    return (0.299 * img[..., 0] + 0.587 * img[..., 1]
+            + 0.114 * img[..., 2])[..., None]
+
+
+def photometric_distort(images: torch.Tensor, draws: PhotometricDraws,
+                        p: float = 0.5) -> torch.Tensor:
+    """Brightness, contrast, saturation and hue jitter and a channel
+    permutation of ``[B, H, W, 3]`` images in [0, 1], each applied to an
+    image with probability ``p``; contrast comes before or after
+    saturation and hue with even odds.  Output in [0, 1]."""
+
+    def contrast(img):
+        grey = _grey(img).mean(dim=(1, 2, 3), keepdim=True)
+        return (img - grey) * _per_image(draws.contrast) + grey
+
+    def saturation(img):
+        grey = _grey(img)
+        return (img - grey) * _per_image(draws.saturation) + grey
+
+    def hue(img):
+        hsv = rgb_to_hsv(img.clamp(0.0, 1.0))
+        shifted = (hsv[..., 0] + draws.hue.view(-1, 1, 1)) % 1.0
+        return hsv_to_rgb(torch.stack([shifted, hsv[..., 1], hsv[..., 2]],
+                                      -1))
+
+    img = torch.where(_per_image(draws.apply_brightness < p),
+                      images * _per_image(draws.brightness), images)
+    first = _per_image(draws.contrast_first < 0.5)
+    do_contrast = _per_image(draws.apply_contrast < p)
+    img = torch.where(first & do_contrast, contrast(img), img)
+    img = torch.where(_per_image(draws.apply_saturation < p),
+                      saturation(img), img)
+    img = torch.where(_per_image(draws.apply_hue < p), hue(img), img)
+    img = torch.where(~first & do_contrast, contrast(img), img)
+    perm = draws.permutation[:, None, None, :].expand(img.shape)
+    img = torch.where(_per_image(draws.apply_permutation < p),
+                      torch.gather(img, -1, perm), img)
+    return img.clamp(0.0, 1.0)

@@ -1,16 +1,18 @@
-"""Multi-level RoIAlign forward over FPN levels.
+"""Multi-level RoIAlign over FPN levels, forward and backward.
 
 Counterpart of ``podtpu/ops/roi_align.py`` (the semantics) and of the
-Pallas kernel ``podtpu/ops/pallas/roi_align_kernel.py::_fwd_kernel`` (the
-hot path).  Each RoI is assigned an FPN level with torchvision's
-``LevelMapper`` rule plus the JAX package's long-side bump
+Pallas kernels ``podtpu/ops/pallas/roi_align_kernel.py::_fwd_kernel`` and
+``_bwd_kernel`` (the hot path).  Each RoI is assigned an FPN level with
+torchvision's ``LevelMapper`` rule plus the JAX package's long-side bump
 (:func:`assign_levels`); each of ``out * out`` bins averages ``ratio**2``
 bilinear samples with torchvision's aligned=False edge rules.
 
-:func:`batched_roi_align` launches the hand-written kernel
-(``csrc/roi_align.cu``) on CUDA tensors and runs
-:func:`batched_roi_align_plain`, a plain-torch transcription that autograd
-can differentiate, on CPU tensors.  The backward kernel is not ported yet.
+:func:`batched_roi_align` runs :func:`batched_roi_align_plain`, a
+plain-torch transcription that autograd differentiates, on CPU tensors.  On
+CUDA tensors it launches the hand-written forward kernel
+(``csrc/roi_align.cu``); when a level requires grad it does so inside an
+autograd function whose backward launches the backward kernel
+(:func:`batched_roi_align_backward`).  Boxes get no gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from podtpu_torch.ops import _build
 
 KERNEL = "roi_align_fwd"
+KERNEL_BWD = "roi_align_bwd"
 MAX_LEVELS = 5
 
 
@@ -141,39 +144,20 @@ class _LevelTable(ctypes.Structure):
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                      strides: Sequence[int], output_size: int = 7,
-                      sampling_ratio: int = 2, canonical_scale: float = 224.0,
-                      canonical_level: int = 4,
-                      min_level: int = 2) -> torch.Tensor:
-    """Multi-level RoIAlign of ``[B, K, 4]`` xyxy image-coordinate boxes over
-    ``[B, Hl, Wl, C]`` contiguous (NHWC) levels -> ``[B, K, out, out, C]``.
-
-    CPU tensors take :func:`batched_roi_align_plain`; CUDA tensors launch the
-    forward kernel (float32 or bfloat16 levels, float32 boxes).
-    """
-    if boxes.device.type == "cpu":
-        return batched_roi_align_plain(
-            features, boxes, strides, output_size, sampling_ratio,
-            canonical_scale, canonical_level, min_level)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"unsupported device {boxes.device}")
-    if torch.is_grad_enabled() and (
-            boxes.requires_grad or any(f.requires_grad for f in features)):
-        raise NotImplementedError(
-            "RoIAlign backward kernel (K3) comes with the training slice")
+def _check_inputs(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                  strides: Sequence[int], output_size: int,
+                  sampling_ratio: int) -> None:
     n_lvl = len(features)
     if not 1 <= n_lvl <= MAX_LEVELS or len(strides) != n_lvl:
         raise ValueError(f"need 1..{MAX_LEVELS} levels with one stride each")
     if boxes.dim() != 3 or boxes.shape[-1] != 4 \
             or boxes.dtype != torch.float32:
         raise ValueError("boxes must be a [B, K, 4] float32 tensor")
-    b, k = boxes.shape[:2]
+    b = boxes.shape[0]
     c = features[0].shape[-1]
     dtype = features[0].dtype
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"levels must be float32 or bfloat16, got {dtype}")
-    table = _LevelTable()
     for i, f in enumerate(features):
         if (f.dim() != 4 or f.shape[0] != b or f.shape[-1] != c
                 or f.dtype != dtype or f.device != boxes.device):
@@ -182,20 +166,31 @@ def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                              f"{f.dtype} on {f.device}")
         if not f.is_contiguous():
             raise ValueError(f"level {i} must be contiguous NHWC")
+    if output_size * sampling_ratio > 64:
+        raise ValueError("output_size * sampling_ratio must be <= 64")
+
+
+def _level_table(levels: Sequence[torch.Tensor],
+                 strides: Sequence[int]) -> _LevelTable:
+    table = _LevelTable()
+    for i, f in enumerate(levels):
         table.data[i] = f.data_ptr()
         table.height[i] = f.shape[1]
         table.width[i] = f.shape[2]
         table.scale[i] = 1.0 / float(strides[i])
-    if output_size * sampling_ratio > 64:
-        raise ValueError("output_size * sampling_ratio must be <= 64")
-    boxes = boxes.contiguous()
-    level = assign_levels(boxes, n_lvl, canonical_scale, canonical_level,
-                          min_level, base_stride=float(strides[0]))
-    level = level.contiguous()
+    return table
+
+
+def _forward_kernel(features, boxes, level, strides, output_size,
+                    sampling_ratio):
+    b, k = boxes.shape[:2]
+    c = features[0].shape[-1]
+    dtype = features[0].dtype
     out = torch.empty((b, k, output_size, output_size, c), dtype=dtype,
                       device=boxes.device)
     if b * k == 0:
         return out
+    table = _level_table(features, strides)
     lib = _build.library()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -206,3 +201,140 @@ def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     _build.check(status, "roi_align forward kernel")
     _build.count_launch(KERNEL)
     return out
+
+
+def _backward_kernel(grad_out, shapes, dtype, boxes, level, strides,
+                     output_size, sampling_ratio):
+    """Level gradients ``[B, Hl, Wl, C]`` in ``dtype``: the kernel adds into
+    float32 buffers zeroed here, cast once to ``dtype`` at the end."""
+    b, k = boxes.shape[:2]
+    c = shapes[0][-1]
+    bufs = [torch.zeros(s, dtype=torch.float32, device=boxes.device)
+            for s in shapes]
+    if b * k:
+        g = grad_out.contiguous()
+        if g.dtype not in _KERNEL_DTYPES:
+            g = g.float()
+        table = _level_table(bufs, strides)
+        lib = _build.library()
+        with torch.cuda.device(boxes.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = lib.podtpu_roi_align_bwd(
+                ctypes.addressof(table), boxes.data_ptr(), level.data_ptr(),
+                g.data_ptr(), b * k, k, c, output_size, sampling_ratio,
+                _KERNEL_DTYPES[g.dtype], stream)
+        _build.check(status, "roi_align backward kernel")
+        _build.count_launch(KERNEL_BWD)
+    return [buf.to(dtype) for buf in bufs]
+
+
+class _RoIAlignFunction(torch.autograd.Function):
+    """Forward kernel K2 and backward kernel K3 as one differentiable op
+    over ``(boxes, level, *features)``; only the features get gradients."""
+
+    @staticmethod
+    def forward(ctx, boxes, level, strides, output_size, sampling_ratio,
+                *features):
+        ctx.save_for_backward(boxes, level)
+        ctx.meta = ([tuple(f.shape) for f in features], features[0].dtype,
+                    strides, output_size, sampling_ratio)
+        return _forward_kernel(features, boxes, level, strides, output_size,
+                               sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, level = ctx.saved_tensors
+        shapes, dtype, strides, output_size, ratio = ctx.meta
+        grads = _backward_kernel(grad_out, shapes, dtype, boxes, level,
+                                 strides, output_size, ratio)
+        grads = [g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad[5:])]
+        return (None, None, None, None, None, *grads)
+
+
+def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                      strides: Sequence[int], output_size: int = 7,
+                      sampling_ratio: int = 2, canonical_scale: float = 224.0,
+                      canonical_level: int = 4,
+                      min_level: int = 2) -> torch.Tensor:
+    """Multi-level RoIAlign of ``[B, K, 4]`` xyxy image-coordinate boxes over
+    ``[B, Hl, Wl, C]`` contiguous (NHWC) levels -> ``[B, K, out, out, C]``.
+
+    CPU tensors take :func:`batched_roi_align_plain`; CUDA tensors launch the
+    forward kernel (float32 or bfloat16 levels, float32 boxes) and, when a
+    level requires grad, the backward kernel in the backward pass.
+    """
+    if boxes.device.type == "cpu":
+        return batched_roi_align_plain(
+            features, boxes, strides, output_size, sampling_ratio,
+            canonical_scale, canonical_level, min_level)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    _check_inputs(features, boxes, strides, output_size, sampling_ratio)
+    boxes = boxes.detach().contiguous()
+    level = assign_levels(boxes, len(features), canonical_scale,
+                          canonical_level, min_level,
+                          base_stride=float(strides[0])).contiguous()
+    strides = tuple(int(s) for s in strides)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return _RoIAlignFunction.apply(boxes, level, strides, output_size,
+                                       sampling_ratio, *features)
+    return _forward_kernel(features, boxes, level, strides, output_size,
+                           sampling_ratio)
+
+
+def batched_roi_align_backward_plain(
+        grad_out: torch.Tensor, features: Sequence[torch.Tensor],
+        boxes: torch.Tensor, strides: Sequence[int], output_size: int = 7,
+        sampling_ratio: int = 2, canonical_scale: float = 224.0,
+        canonical_level: int = 4, min_level: int = 2):
+    """Level gradients of :func:`batched_roi_align_plain` for the upstream
+    gradient ``grad_out [B, K, out, out, C]``, by autograd, computed in
+    float32 and returned in the levels' dtype.  The map is linear in the
+    features, so only their shapes matter."""
+    zeros = [torch.zeros(f.shape, dtype=torch.float32, device=f.device,
+                         requires_grad=True) for f in features]
+    with torch.enable_grad():
+        out = batched_roi_align_plain(zeros, boxes.detach(), strides,
+                                      output_size, sampling_ratio,
+                                      canonical_scale, canonical_level,
+                                      min_level)
+        grads = torch.autograd.grad(out, zeros, grad_out.float(),
+                                    allow_unused=True)
+    return [torch.zeros_like(z) if g is None else g.to(f.dtype)
+            for g, z, f in zip(grads, zeros, features)]
+
+
+def batched_roi_align_backward(
+        grad_out: torch.Tensor, features: Sequence[torch.Tensor],
+        boxes: torch.Tensor, strides: Sequence[int], output_size: int = 7,
+        sampling_ratio: int = 2, canonical_scale: float = 224.0,
+        canonical_level: int = 4, min_level: int = 2):
+    """Level gradients ``[B, Hl, Wl, C]`` (in the levels' dtype) of
+    :func:`batched_roi_align` for the upstream gradient ``grad_out``.
+
+    CPU tensors take :func:`batched_roi_align_backward_plain`; CUDA tensors
+    launch the backward kernel, which sums in float32 with atomics (the
+    order of the sums, and so the last bits, change from run to run) and
+    casts each level once at the end.
+    """
+    if boxes.device.type == "cpu":
+        return batched_roi_align_backward_plain(
+            grad_out, features, boxes, strides, output_size, sampling_ratio,
+            canonical_scale, canonical_level, min_level)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    _check_inputs(features, boxes, strides, output_size, sampling_ratio)
+    b, k = boxes.shape[:2]
+    c = features[0].shape[-1]
+    if tuple(grad_out.shape) != (b, k, output_size, output_size, c) \
+            or grad_out.device != boxes.device:
+        raise ValueError(f"grad_out must be [{b}, {k}, {output_size}, "
+                         f"{output_size}, {c}] on {boxes.device}")
+    boxes = boxes.detach().contiguous()
+    level = assign_levels(boxes, len(features), canonical_scale,
+                          canonical_level, min_level,
+                          base_stride=float(strides[0])).contiguous()
+    return _backward_kernel(grad_out, [tuple(f.shape) for f in features],
+                            features[0].dtype, boxes, level, strides,
+                            output_size, sampling_ratio)

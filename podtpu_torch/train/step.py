@@ -1,0 +1,121 @@
+"""The training step: augment, forward, losses, backward, update.
+
+Counterpart of ``podtpu/train/step.py`` (``images_to_float``,
+``make_train_step``, ``warmup_factor``).  The JAX step is one jitted
+program; the port's runs eagerly on the model's device.  Every random
+decision of a step is an explicit tensor of :class:`TrainDraws`, made by
+:func:`draw_train` from a ``torch.Generator`` or handed in by the caller (the
+tests hand in the draws JAX made from its key).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from podtpu_torch.core.config import Config
+from podtpu_torch.data.presets import (AugmentDraws, augment_batch_policy,
+                                       draw_augment, get_policy,
+                                       policy_kwargs)
+from podtpu_torch.infer.inference import resolve_device
+from podtpu_torch.models.detector import ModelDraws, draw_model
+from podtpu_torch.train.optim import apply_optimizer
+
+LOSS_KEYS = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier",
+             "loss_box_reg")
+
+
+def images_to_float(images: torch.Tensor) -> torch.Tensor:
+    """uint8 canvases -> [0, 1] float32; float inputs pass through."""
+    if images.dtype == torch.uint8:
+        return images.to(torch.float32) / 255.0
+    return images
+
+
+class TrainDraws(NamedTuple):
+    augment: AugmentDraws
+    model: ModelDraws
+
+
+def draw_train(generator: torch.Generator, cfg: Config,
+               batch: Dict[str, torch.Tensor]) -> TrainDraws:
+    """Every random number of one step for ``batch``, on ``generator``'s
+    device."""
+    b = batch["image"].shape[0]
+    return TrainDraws(
+        augment=draw_augment(generator, b),
+        model=draw_model(generator, cfg.model, b, batch["boxes"].shape[1]))
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    cfg: Config, device=None,
+                    mark: Optional[Callable[[str], None]] = None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(batch, lr, generator=None, draws=None) -> metrics``.
+
+    The model is moved to ``device`` (in place: the optimiser keeps its
+    parameters), which is the GPU unless the caller passes ``"cpu"``; with
+    no GPU and no device this raises.  ``batch`` holds ``image`` uint8
+    ``[B, H, W, 3]``, ``boxes [B, G, 4]``, ``labels [B, G]``, ``valid
+    [B, G]`` and optionally ``image_weight [B]``; it is moved to the
+    device.  ``generator`` (on the device) makes the step's draws unless
+    ``draws`` gives them.  ``metrics`` holds the four losses, their sum
+    ``loss`` and ``lr``, as tensors (reading them waits for the step).
+    ``mark``, if given, is called with ``"augment"``, ``"forward_losses"``,
+    ``"backward"`` and ``"optimizer"`` as each part of a step begins, and
+    with ``"end"`` after the last, so a profiler can time the parts.
+    """
+    if cfg.data.copy_paste:
+        raise NotImplementedError(
+            "podtpu_torch does not port copy-paste yet (ROADMAP.md, open "
+            "item 1: the other augmentation policies and copy-paste)")
+    policy = get_policy(cfg.data.aug_policy)
+    policy_kw = policy_kwargs(cfg)
+    clip = cfg.train.clip_grad_norm
+    dev = resolve_device(device)
+    model.to(dev)
+    mark = mark or (lambda part: None)
+
+    def step(batch: Dict, lr, generator: Optional[torch.Generator] = None,
+             draws: Optional[TrainDraws] = None) -> Dict[str, torch.Tensor]:
+        batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                 for k, v in batch.items()}
+        mark("augment")
+        if draws is None:
+            if generator is None:
+                raise ValueError("step needs a torch.Generator or draws")
+            draws = draw_train(generator, cfg, batch)
+        images, boxes, valid = augment_batch_policy(
+            policy, images_to_float(batch["image"]), batch["boxes"],
+            batch["valid"], draws.augment, **policy_kw)
+        gt = {"boxes": boxes, "labels": batch["labels"], "valid": valid}
+        if "image_weight" in batch:
+            gt["image_weight"] = batch["image_weight"]
+        mark("forward_losses")
+        losses = model(images, gt=gt, draws=draws.model)
+        total = sum(losses[k] for k in LOSS_KEYS)
+        mark("backward")
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        mark("optimizer")
+        apply_optimizer(optimizer, lr, clip)
+        mark("end")
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["lr"] = torch.as_tensor(float(lr))
+        return metrics
+
+    return step
+
+
+def warmup_factor(cfg: Config, epoch: int, it: int,
+                  iters_in_epoch: int) -> float:
+    """Linear warmup on epoch 0 only: factor ``warmup_start_factor`` -> 1
+    over ``min(warmup_iters, iters_in_epoch - 1)`` iterations."""
+    if epoch != 0:
+        return 1.0
+    total = min(cfg.train.warmup_iters, max(iters_in_epoch - 1, 1))
+    if it >= total:
+        return 1.0
+    alpha = it / total
+    return cfg.train.warmup_start_factor * (1 - alpha) + alpha

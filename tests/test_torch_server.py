@@ -162,13 +162,17 @@ class TestDeviceAndImports:
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'flax', 'optax', 'podtpu', 'msgpack',"
             " 'triton'))\n"
+            "train = ['podtpu_torch.train.step', 'podtpu_torch.train.optim',"
+            " 'podtpu_torch.data.presets', 'podtpu_torch.ops.matching',"
+            " 'podtpu_torch.ops.image_ops']\n"
+            "assert all(m in sys.modules for m in train), train\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('podtpu_torch.')]), bad)\n")
         out = subprocess.run([sys.executable, "-I", "-c", code],
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
         count, bad = out.stdout.split(" ", 1)
-        assert int(count) >= 20 and bad.strip() == "[]"
+        assert int(count) >= 25 and bad.strip() == "[]"
 
     @pytest.mark.parametrize("alone", [False, True])
     def test_chip_smoke_fails_without_card_or_package(self, alone, tmp_path):
