@@ -14,9 +14,10 @@ Phases, one JSON line each:
    the serving and the training shapes (keep masks equal for NMS; RoIAlign
    forward within atol 2e-2, rtol 1e-2 of a float32 plain run on the same
    bf16 inputs; RoIAlign backward within atol 2e-2, rtol 1e-2 in bf16 and
-   atol 1e-4, rtol 1e-4 in float32 of the float32 plain backward), with
-   CUDA-event times and the least time the card could take for the same
-   work;
+   atol 1e-4, rtol 1e-4 in float32 of the float32 plain backward; both
+   RoIAlign kernels in both output layouts, the backward also on RoIs
+   placed against its 8x8 tiles and twice for equal bits), with CUDA-event
+   times and the least time the card could take for the same work;
 4. reference: a small float32 model on the card against the same weights on
    the CPU (plain versions), detection by detection;
 5. slice: Faster R-CNN ResNet-50-FPN at the ``ModelConfig`` defaults
@@ -50,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -68,7 +70,10 @@ F32_OPS_PER_S = 67e12
 NMS_OPS_PER_IOU = 13       # 4 min/max, 2 sub, 2 clamp, mul, add, sub, div, cmp
 ROI_OPS_PER_SAMPLE = 12    # per channel: 4 weights, 4 mul-add pairs
 ROI_BWD_OPS_PER_SAMPLE = 10  # per channel: 2 row weights, 4 corner weights,
-                             # 4 atomic adds
+                             # 4 adds
+K3_TILE = 8                  # K3's tile side in cells (csrc/roi_align.cu),
+K3_SPLIT_TARGET = 128        # the tiles under which a level's tiles are
+K3_MAX_SPLIT = 8             # split over blocks, and the most blocks a tile
 SEED = 0
 TRAIN_B, TRAIN_K = 2, 512  # images per step, sampled RoIs per image
 
@@ -223,18 +228,14 @@ def roi_boxes(rng, b, k, canvas=1024.0):
     return boxes.astype(np.float32)
 
 
-def roi_bound(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
-    """Bytes and operations RoIAlign must spend on this data: every feature
-    cell some inside sample touches, read once; boxes read once; the output
-    written once; 12 operations per inside sample and channel."""
-    b, k = boxes.shape[:2]
-    c = levels[0].shape[-1]
+def roi_samples(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
+    """Level, neighbour cells and inside flags of every sample of every RoI
+    (``[B, K, out * ratio]`` per axis), by the plain version's arithmetic."""
     lvl = roi_align.assign_levels(boxes, len(strides),
                                   base_stride=float(strides[0])).long()
     dev = boxes.device
     heights = torch.tensor([f.shape[1] for f in levels], device=dev)
     widths = torch.tensor([f.shape[2] for f in levels], device=dev)
-    offsets = torch.cumsum(heights * widths, 0) - heights * widths
     scale = 1.0 / torch.tensor(strides, dtype=torch.float32, device=dev)
     n = out * ratio
     g = torch.arange(n, dtype=torch.float32, device=dev)
@@ -248,6 +249,20 @@ def roi_bound(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
     hgt, wid = heights[lvl][..., None], widths[lvl][..., None]
     ylo, yhi, _, _, yin = roi_align._interp_axis(ys, hgt)
     xlo, xhi, _, _, xin = roi_align._interp_axis(xs, wid)
+    return lvl, heights, widths, (ylo, yhi, yin), (xlo, xhi, xin)
+
+
+def roi_bound(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
+    """Bytes and operations RoIAlign must spend on this data: every feature
+    cell some inside sample touches, read once; boxes read once; the output
+    written once; 12 operations per inside sample and channel."""
+    b, k = boxes.shape[:2]
+    c = levels[0].shape[-1]
+    dev = boxes.device
+    lvl, heights, widths, (ylo, yhi, yin), (xlo, xhi, xin) = roi_samples(
+        torch, roi_align, levels, boxes, strides, out, ratio)
+    offsets = torch.cumsum(heights * widths, 0) - heights * widths
+    wid = widths[lvl][..., None]
     inside = yin[..., :, None] & xin[..., None, :]            # [B, K, n, n]
     base = (torch.arange(b, device=dev)[:, None] * int((heights * widths)
             .sum()) + offsets[lvl])[..., None, None]
@@ -261,6 +276,21 @@ def roi_bound(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
               + b * k * out * out * c * levels[0].element_size())
     ops = int(inside.sum()) * c * ROI_OPS_PER_SAMPLE
     return nbytes, ops, touched
+
+
+def k3_tile_hits(torch, roi_align, levels, boxes, strides, out=7, ratio=2):
+    """(RoI, tile) pairs K3 visits: for each RoI the tiles of K3_TILE cells
+    a side that the rectangle of its inside samples' cells meets."""
+    _, _, _, (ylo, yhi, yin), (xlo, xhi, xin) = roi_samples(
+        torch, roi_align, levels, boxes, strides, out, ratio)
+    big = 1 << 30
+
+    def span(lo, hi, inside):
+        first = torch.where(inside, lo, big).amin(-1) // K3_TILE
+        last = torch.where(inside, hi, -1).amax(-1) // K3_TILE
+        return torch.where(inside.any(-1), last - first + 1, 0)
+
+    return int((span(ylo, yhi, yin) * span(xlo, xhi, xin)).sum())
 
 
 def random_levels(torch, dev, gen, b, c=256, canvas=1024,
@@ -278,6 +308,10 @@ def random_levels(torch, dev, gen, b, c=256, canvas=1024,
 
 def check_roi_align(torch, roi_align, dev, b=4, k=1000, seed=SEED + 1,
                     case="serving_b4_k1000_c256_bf16"):
+    """K2 in both output layouts against the float32 plain run on the same
+    bf16 inputs.  ``kernel_ms`` is the JAX package's layout, ``[B, K, out,
+    out, C]``; ``kernel_ms_channels_first`` the box head's, which the
+    model's paths launch."""
     rng = np.random.default_rng(seed)
     c, canvas = 256, 1024
     strides = (4, 8, 16, 32)
@@ -285,19 +319,34 @@ def check_roi_align(torch, roi_align, dev, b=4, k=1000, seed=SEED + 1,
     levels = random_levels(torch, dev, gen, b, c, canvas, strides)
     boxes = torch.from_numpy(roi_boxes(rng, b, k, canvas)).to(dev)
     got = roi_align.batched_roi_align(levels, boxes, strides)
+    got_cf = roi_align.batched_roi_align(levels, boxes, strides,
+                                         channels_first=True)
     levels32 = [f.float() for f in levels]
     want = roi_align.batched_roi_align_plain(levels32, boxes, strides)
+    # The card computes each box's level in one kernel of its own; the
+    # plain version computes it with torch operations.
+    level_mismatches = int((roi_align._assign_levels_kernel(
+        boxes, len(strides), 224.0, 4, 2, float(strides[0]))
+        != roi_align.assign_levels(boxes, len(strides),
+                                   base_stride=float(strides[0]))).sum())
     torch.cuda.synchronize()
+    same_layouts = bool(torch.equal(got_cf, got.permute(0, 1, 4, 2, 3)))
     err = float((got.float() - want).abs().max())
     ok = bool(torch.allclose(got.float(), want, atol=2e-2, rtol=1e-2))
+    del got_cf
     ms = time_ms(lambda: roi_align.batched_roi_align(levels, boxes, strides))
+    ms_cf = time_ms(lambda: roi_align.batched_roi_align(
+        levels, boxes, strides, channels_first=True))
     plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
         levels32, boxes, strides), reps=20)
     nbytes, ops, touched = roi_bound(torch, roi_align, levels, boxes, strides)
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
     rec = {"phase": "kernels", "kernel": "roi_align_fwd",
            "case": case, "shape": list(got.shape),
-           "max_abs_err": err, "within_tolerance": ok, "kernel_ms": ms,
+           "max_abs_err": err, "within_tolerance": ok,
+           "channels_first_equal_bits": same_layouts,
+           "level_mismatches": level_mismatches, "kernel_ms": ms,
+           "kernel_ms_channels_first": ms_cf,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bytes": nbytes, "ops": ops, "touched_cells": touched,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -305,20 +354,124 @@ def check_roi_align(torch, roi_align, dev, b=4, k=1000, seed=SEED + 1,
     if not ok:
         raise AssertionError(f"roi_align: max abs error {err} exceeds atol "
                              "2e-2 / rtol 1e-2")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
+    if not same_layouts:
+        raise AssertionError("roi_align: the channels-first output differs "
+                             "from the permuted channels-last output")
+    if level_mismatches:
+        raise AssertionError(f"roi_align: {level_mismatches} boxes get "
+                             "another level on the card than in torch")
+    return {"ms": ms_cf, "plain_ms": plain_ms, "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "max_abs_err": err}
+
+
+def tile_case_boxes(rng, b, k, canvas=1024.0):
+    """RoIs placed against K3's 8x8-cell tiles (32 px at P2, 64 at P3, 128
+    at P4, 256 at P5): straddling tile borders and corners on every level,
+    wholly inside one tile, covering all of P5, stacked on one spot, at and
+    beyond the canvas edge, zero-size, then random ones."""
+    fixed = np.array([
+        [36, 36, 56, 56], [2, 2, 20, 28],            # inside one P2 tile
+        [20, 20, 44, 44], [28, 60, 70, 68],          # across P2 borders
+        [200, 200, 330, 330], [130, 120, 250, 260],  # P3, across corners
+        [136, 136, 180, 184],                        # inside one P3 tile
+        [300, 100, 600, 380], [250, 250, 520, 516],  # P4 across borders
+        [0, 0, 1023, 1023], [0, 0, 1024, 1024],      # all of P5
+        [100, 200, 900, 760], [500, 500, 1100, 1100],
+        [10, 500, 1010, 530], [-50, 100, 80, 140],   # elongated, outside
+        [1000, 1000, 1030, 1030], [0, 0, 0, 0], [512, 512, 512, 512],
+    ], np.float32)
+    boxes = roi_boxes(rng, b, k, canvas)
+    n = len(fixed)
+    boxes[:, :n] = fixed
+    boxes[:, n:2 * n] = fixed      # every fixed RoI twice: sums over RoIs
+    boxes[:, 2 * n:2 * n + 6] = [[250, 250, 520, 516]]
+    return boxes
+
+
+def check_roi_align_cases(torch, roi_align, dev):
+    """K2 and K3 on RoIs placed against K3's tiles, in bf16 and float32,
+    both layouts, output sizes 7 and 14, at the training level shapes with
+    48 channels (one ragged chunk and group), against the float32 plain
+    versions; K3 twice for equal bits."""
+    b, k, c, canvas = 2, 64, 48, 1024
+    strides = (4, 8, 16, 32)
+    rng = np.random.default_rng(SEED + 4)
+    boxes = torch.from_numpy(tile_case_boxes(rng, b, k, canvas)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tols = {torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+            torch.float32: dict(atol=1e-4, rtol=1e-4)}
+    worst = {}
+    for out_size in (7, 14):
+        for dtype, tol in tols.items():
+            if out_size == 14 and dtype == torch.float32:
+                # 196 bins a RoI and stacked RoIs: sums of hundreds of
+                # float32 terms, in the plain version too.
+                tol = dict(atol=5e-4, rtol=1e-4)
+            levels = random_levels(torch, dev, gen, b, c, canvas, strides,
+                                   dtype)
+            levels32 = [f.float() for f in levels]
+            g = torch.randn((b, k, out_size, out_size, c), device=dev,
+                            generator=gen).to(dtype)
+            want_f = roi_align.batched_roi_align_plain(
+                levels32, boxes, strides, out_size)
+            want_b = roi_align.batched_roi_align_backward_plain(
+                g.float(), levels32, boxes, strides, out_size)
+            for cf in (False, True):
+                name = (f"out{out_size}_"
+                        f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_"
+                        f"{'channels_first' if cf else 'channels_last'}")
+                got_f = roi_align.batched_roi_align(
+                    levels, boxes, strides, out_size, channels_first=cf)
+                if cf:
+                    got_f = got_f.permute(0, 1, 3, 4, 2)
+                g_in = g.permute(0, 1, 4, 2, 3).contiguous() if cf else g
+                got_b = roi_align.batched_roi_align_backward(
+                    g_in, levels, boxes, strides, out_size,
+                    channels_first=cf)
+                again = roi_align.batched_roi_align_backward(
+                    g_in, levels, boxes, strides, out_size,
+                    channels_first=cf)
+                torch.cuda.synchronize()
+                # The forward's own tolerance in float32: sums of four
+                # products of values near 1 in another order.
+                f_tol = tol if dtype == torch.bfloat16 else dict(
+                    atol=1e-4, rtol=1e-4)
+                rec = {"phase": "kernels", "kernel": "roi_align_cases",
+                       "case": name,
+                       "fwd_max_abs_err": float(
+                           (got_f.float() - want_f).abs().max()),
+                       "fwd_ok": bool(torch.allclose(got_f.float(), want_f,
+                                                     **f_tol)),
+                       "bwd_max_abs_err": max(
+                           float((x.float() - w).abs().max())
+                           for x, w in zip(got_b, want_b)),
+                       "bwd_ok": all(
+                           x.dtype == dtype
+                           and torch.allclose(x.float(), w, **tol)
+                           for x, w in zip(got_b, want_b)),
+                       "bwd_equal_bits": all(
+                           torch.equal(x, y) for x, y in zip(got_b, again))}
+                emit(rec)
+                if not (rec["fwd_ok"] and rec["bwd_ok"]
+                        and rec["bwd_equal_bits"]):
+                    raise AssertionError(f"roi_align cases {name}: {rec}")
+                worst[name] = rec
+    return worst
 
 
 def check_roi_align_bwd(torch, roi_align, dev):
     """K3 at the training shapes, in bf16 (the training path) and float32,
-    against the float32 plain backward on the same inputs.  Its bound
+    in both layouts of the upstream gradient, against the float32 plain
+    backward on the same inputs, and twice for equal bits.  Its bound
     counts what the function must move: the upstream gradient and the
     boxes, read once, and every cell of the level gradients, written once
     in the level dtype (the untouched cells as zeros).  ``bytes_moved``
-    counts what this design moves: the wrapper zeroing the float32
-    buffers, a float32 read and write of each distinct cell some inside
-    sample touches (the atomics), and the cast to the level dtype; the
-    measured time includes all of it."""
+    counts what this design moves: the level and preparing passes (boxes
+    read, levels, each RoI's sample entries and 8 bytes of rectangle
+    written), each block's scan of its image's rectangles, the upstream
+    gradient and the sample entries of a RoI once for every tile its
+    rectangle meets, the float32 partial tiles of the split coarse levels
+    written and read once, and the level gradients written once."""
     rng = np.random.default_rng(SEED + 2)
     b, k, c, canvas = TRAIN_B, TRAIN_K, 256, 1024
     strides = (4, 8, 16, 32)
@@ -329,7 +482,12 @@ def check_roi_align_bwd(torch, roi_align, dev):
                        (torch.float32, dict(atol=1e-4, rtol=1e-4))):
         levels = random_levels(torch, dev, gen, b, c, canvas, strides, dtype)
         g = torch.randn((b, k, 7, 7, c), device=dev, generator=gen).to(dtype)
+        g_cf = g.permute(0, 1, 4, 2, 3).contiguous()
         got = roi_align.batched_roi_align_backward(g, levels, boxes, strides)
+        again = roi_align.batched_roi_align_backward(g, levels, boxes,
+                                                     strides)
+        got_cf = roi_align.batched_roi_align_backward(
+            g_cf, levels, boxes, strides, channels_first=True)
         levels32 = [f.float() for f in levels]
         want = roi_align.batched_roi_align_backward_plain(
             g.float(), levels32, boxes, strides)
@@ -338,34 +496,59 @@ def check_roi_align_bwd(torch, roi_align, dev):
                   for x, w in zip(got, want))
         ok = all(x.dtype == dtype and torch.allclose(x.float(), w, **tol)
                  for x, w in zip(got, want))
-        del got, want
+        equal_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+        same_layouts = all(torch.equal(x, y) for x, y in zip(got, got_cf))
+        del got, again, got_cf, want
         ms = time_ms(lambda: roi_align.batched_roi_align_backward(
             g, levels, boxes, strides))
+        ms_cf = time_ms(lambda: roi_align.batched_roi_align_backward(
+            g_cf, levels, boxes, strides, channels_first=True))
         plain_ms = time_ms(lambda: roi_align.batched_roi_align_backward_plain(
             g.float(), levels32, boxes, strides), reps=10)
         _, fwd_ops, touched = roi_bound(torch, roi_align, levels, boxes,
                                         strides)
+        size = levels[0].element_size()
         cells = sum(f.numel() for f in levels)
         reads = g.numel() * g.element_size() + boxes.numel() * 4
-        nbytes = reads + cells * levels[0].element_size()
-        moved = (reads + cells * 4 + 2 * touched * c * 4
-                 + cells * (4 + levels[0].element_size()))
+        nbytes = reads + cells * size
+        per_roi = 2 * 7 * 2 * 8                # sample entries, bytes
+        groups = -(-c * size // 512)           # 32 16-byte vectors a block
+        units = partial_tiles = 0
+        for f in levels:
+            n = -(-f.shape[1] // K3_TILE) * -(-f.shape[2] // K3_TILE)
+            split = min(max(K3_SPLIT_TARGET // n, 1), K3_MAX_SPLIT)
+            units += n * split
+            partial_tiles += n * split if split > 1 else 0
+        hits = k3_tile_hits(torch, roi_align, levels, boxes, strides)
+        partial = b * partial_tiles * K3_TILE * K3_TILE * c * 4
+        moved = (b * k * (16 + 4) + b * k * (16 + 4 + per_roi + 8)
+                 + b * units * groups * k * 8
+                 + hits * (49 * c * size + per_roi * groups)
+                 + 2 * partial + cells * size)
         ops = fwd_ops // ROI_OPS_PER_SAMPLE * ROI_BWD_OPS_PER_SAMPLE
         t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         rec = {"phase": "kernels", "kernel": "roi_align_bwd",
                "case": f"train_b{b}_k{k}_c{c}_{name}",
                "grad_shape": list(g.shape), "max_abs_err": err,
-               "tolerance": tol, "within_tolerance": ok, "kernel_ms": ms,
+               "tolerance": tol, "within_tolerance": ok,
+               "equal_bits_twice": equal_bits,
+               "channels_first_equal_bits": same_layouts, "kernel_ms": ms,
+               "kernel_ms_channels_first": ms_cf,
                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-               "bytes": nbytes, "bytes_moved": moved, "ops": ops,
+               "bytes": nbytes, "bytes_moved": moved, "tile_hits": hits,
+               "blocks": b * units * groups, "partial_bytes": partial,
+               "ops": ops,
                "touched_cells": touched,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         emit(rec)
         if not ok:
             raise AssertionError(f"roi_align_bwd {name}: max abs error {err} "
                                  f"exceeds {tol}")
-        out[name] = {"ms": ms, "plain_ms": plain_ms,
+        if not (equal_bits and same_layouts):
+            raise AssertionError(f"roi_align_bwd {name}: two runs, or the "
+                                 "two layouts, differ in bits")
+        out[name] = {"ms": ms_cf, "plain_ms": plain_ms,
                      "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
                      "max_abs_err": err}
     return out["bf16"]
@@ -480,6 +663,12 @@ def device_profile(torch, run, reps=3, unit="forward"):
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    ours = {}       # the port's own kernels, by function name
+    for name, ms in by_name.items():
+        found = re.search(r"\b(roi_\w+|nms_\w+)", name)
+        if found:
+            ours[found.group(1)] = (ours.get(found.group(1), 0.0)
+                                    + ms / 1e3 / reps)
     ops = sorted(((e.key, e.self_device_time_total, e.count)
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0), key=lambda t: -t[1])[:12]
@@ -487,6 +676,7 @@ def device_profile(torch, run, reps=3, unit="forward"):
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us if spans else None,
             "device_activities": len(spans),
+            f"port_kernels_ms_per_{unit}": ours,
             f"top_kernels_ms_per_{unit}": [
                 [name[:160], ms / 1e3 / reps] for name, ms in top],
             f"top_ops_self_device_ms_per_{unit}": [
@@ -670,13 +860,15 @@ def plain_k3(torch, mcfg):
 
     kernel = roi_align._backward_kernel
 
-    def plain(grad_out, shapes, dtype, boxes, level, strides, out, ratio):
+    def plain(grad_out, shapes, dtype, boxes, level, strides, out, ratio,
+              channels_first):
         feats = [torch.empty(sh, dtype=dtype, device=boxes.device)
                  for sh in shapes]
         return roi_align.batched_roi_align_backward_plain(
             grad_out, feats, boxes, strides, out, ratio,
             canonical_scale=mcfg.roi_canonical_scale,
-            canonical_level=mcfg.roi_canonical_level)
+            canonical_level=mcfg.roi_canonical_level,
+            channels_first=channels_first)
 
     roi_align._backward_kernel = plain
     try:
@@ -933,6 +1125,7 @@ def main() -> int:
     check_roi_align(torch, roi_align, "cuda", b=TRAIN_B, k=TRAIN_K,
                     seed=SEED + 3, case="train_b2_k512_c256_bf16")
     bwd_rec = check_roi_align_bwd(torch, roi_align, "cuda")
+    check_roi_align_cases(torch, roi_align, "cuda")
     check_reference(torch, "cuda")
     serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4))
     check_train_reference(torch, "cuda")

@@ -65,7 +65,7 @@ class FastRCNNPredictor(nn.Module):
 
 
 class BoxHead(nn.Module):
-    """TwoMLPHead + predictor over ``[N, P, P, C]`` pooled features ->
+    """TwoMLPHead + predictor over ``[N, C, P, P]`` pooled features ->
     float32 class logits ``[N, classes]`` and deltas ``[N, classes*4]``."""
 
     def __init__(self, channels: int, pool_size: int, num_classes: int,
@@ -78,7 +78,7 @@ class BoxHead(nn.Module):
                                                compute_dtype)
 
     def forward(self, pooled: torch.Tensor):
-        x = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
+        x = pooled.flatten(1)  # a view of contiguous pooled features
         logits, deltas = self.box_predictor(self.box_head(x))
         return logits.float(), deltas.float()
 
@@ -199,7 +199,8 @@ def pool_rois_batched(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
                       cfg: ModelConfig,
                       pool_size: Optional[int] = None) -> torch.Tensor:
     """Multi-level RoIAlign of ``[B, K, 4]`` RoIs over the box-head levels
-    (NCHW, channels_last) -> ``[B, K, P, P, C]``."""
+    (NCHW, channels_last) -> ``[B, K, C, P, P]``, the order ``BoxHead``
+    flattens."""
     n_lvl = len(cfg.roi_strides)
     # The NHWC view of a channels_last level is contiguous: no copy.
     levels = [f.permute(0, 2, 3, 1).contiguous() for f in pyramid[:n_lvl]]
@@ -208,4 +209,4 @@ def pool_rois_batched(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
         output_size=pool_size or cfg.roi_pool_size,
         sampling_ratio=cfg.roi_sampling_ratio,
         canonical_scale=cfg.roi_canonical_scale,
-        canonical_level=cfg.roi_canonical_level)
+        canonical_level=cfg.roi_canonical_level, channels_first=True)

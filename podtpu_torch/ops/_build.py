@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 Every ``podtpu_torch/csrc/*.cu`` source is compiled with ``nvcc`` for
-``sm_90a`` (one ``nvcc -c`` per source, all started together) and linked
+``sm_90a`` (one ``nvcc -c`` per source, or per part of a source listed in
+``PARTS``, all started together) and linked
 into ``build/podtpu_torch/libpodtpu_torch_kernels.so`` at the repository
 root, on first use.  The library exports plain C entry points that return a
 ``cudaError_t``; it is loaded with ``ctypes``.  A stamp file holds a hash of
@@ -36,6 +37,10 @@ LIB_NAME = "libpodtpu_torch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# Sources compiled once per part, each with -D<macro>=<part>, so that the
+# parts build in parallel.
+PARTS = {"roi_align.cu": ("PODTPU_ROI_ALIGN_PART", (1, 2))}
+
 launches: Dict[str, int] = collections.Counter()
 
 _lock = threading.Lock()
@@ -63,7 +68,7 @@ def _nvcc() -> str:
 
 
 def _sources_digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(PARTS)).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -84,17 +89,23 @@ def build() -> Path:
     nvcc = _nvcc()
     procs = []
     for src in sources:
-        obj = BUILD_DIR / (src.stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        macro, parts = PARTS.get(src.name, (None, (None,)))
+        for part in parts:
+            name = src.name if part is None else f"{src.name} part {part}"
+            obj = BUILD_DIR / (src.stem + ("" if part is None
+                                           else f".{part}") + ".o")
+            define = [] if part is None else [f"-D{macro}={part}"]
+            cmd = [nvcc, *NVCC_FLAGS, *define, "-c", str(src), "-o",
+                   str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     log, failed = [], []
-    for src, _, proc in procs:
+    for name, _, proc in procs:
         out, _ = proc.communicate()
-        log.append(f"== {src.name} (exit {proc.returncode})\n{out}")
+        log.append(f"== {name} (exit {proc.returncode})\n{out}")
         if proc.returncode != 0:
-            failed.append(src.name)
+            failed.append(name)
     if not failed:
         tmp = BUILD_DIR / (LIB_NAME + ".tmp")
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
@@ -118,12 +129,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.podtpu_nms_keep.argtypes = [vp, vp, vp, vp, i32, i32, f32, vp]
     lib.podtpu_nms_keep.restype = i32
-    lib.podtpu_roi_align_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         i32, i32, vp]
+    lib.podtpu_roi_levels.argtypes = [vp, vp, i32, i32, f32, f32, f32, f32,
+                                      f32, vp]
+    lib.podtpu_roi_levels.restype = i32
+    lib.podtpu_roi_align_fwd.argtypes = [vp, i32, vp, vp, vp, i32, i32, i32,
+                                         i32, i32, i32, i32, vp]
     lib.podtpu_roi_align_fwd.restype = i32
-    lib.podtpu_roi_align_bwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         i32, i32, vp]
+    lib.podtpu_roi_align_bwd.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32,
+                                         i32, i32, i32, i32, i32, vp]
     lib.podtpu_roi_align_bwd.restype = i32
+    lib.podtpu_roi_align_bwd_scratch_bytes.argtypes = [vp, i32, i32, i32,
+                                                      i32, i32, i32]
+    lib.podtpu_roi_align_bwd_scratch_bytes.restype = ctypes.c_longlong
+    lib.podtpu_roi_align_refusal.argtypes = [i32]
+    lib.podtpu_roi_align_refusal.restype = ctypes.c_char_p
     lib.podtpu_error_string.argtypes = [i32]
     lib.podtpu_error_string.restype = ctypes.c_char_p
 

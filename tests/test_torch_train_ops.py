@@ -313,14 +313,17 @@ class TestRoIAlignBackward:
                          for _ in range(2)])
         g = rng.normal(size=(2, rois.shape[1], 7, 7, 8)).astype(np.float32)
 
-        def fwd(features, bx, level, strides, out, ratio):
+        def fwd(features, bx, level, strides, out, ratio, channels_first):
             return roi_align.batched_roi_align_plain(
-                [f.detach() for f in features], bx, strides, out, ratio)
+                [f.detach() for f in features], bx, strides, out, ratio,
+                channels_first=channels_first)
 
-        def bwd(grad_out, shapes, dtype, bx, level, strides, out, ratio):
+        def bwd(grad_out, shapes, dtype, bx, level, strides, out, ratio,
+                channels_first):
             zeros = [torch.zeros(s, dtype=dtype) for s in shapes]
             return roi_align.batched_roi_align_backward_plain(
-                grad_out, zeros, bx, strides, out, ratio)
+                grad_out, zeros, bx, strides, out, ratio,
+                channels_first=channels_first)
 
         monkeypatch.setattr(roi_align, "_forward_kernel", fwd)
         monkeypatch.setattr(roi_align, "_backward_kernel", bwd)
@@ -329,7 +332,7 @@ class TestRoIAlignBackward:
         tf = [t(f).requires_grad_() for f in feats]
         level = roi_align.assign_levels(tb.detach(), 4)
         out = roi_align._RoIAlignFunction.apply(tb.detach(), level, STRIDES,
-                                                7, 2, *tf)
+                                                7, 2, False, *tf)
         out.backward(t(g))
         want = xla_grad(feats, rois, g)
         for x, w in zip(tf, want):
