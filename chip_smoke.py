@@ -11,7 +11,9 @@ Phases, one JSON line each:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile ``podtpu_torch/csrc/*.cu`` for ``sm_90a`` into ``build/``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving and the training shapes (keep masks equal for NMS; RoIAlign
+   the serving and the training shapes (keep masks equal for NMS, each case
+   twice for equal bits, one unsorted case through the kernel's ``order``
+   path against the sorted path, kept boxes per segment; RoIAlign
    forward within atol 2e-2, rtol 1e-2 of a float32 plain run on the same
    bf16 inputs; RoIAlign backward within atol 2e-2, rtol 1e-2 in bf16 and
    atol 1e-4, rtol 1e-4 in float32 of the float32 plain backward; both
@@ -42,7 +44,11 @@ Phases, one JSON line each:
    and optimiser, recorded through the step's ``mark`` hook, and a
    ``torch.profiler`` window of 3 steps.
 
-Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+Then K1 on the inputs the main paths gave it (one serving batch's RPN and
+postprocess calls, one training step's call, captured after the timed
+runs): as the path calls it and in score order, against the plain version,
+twice, with times.  Then the ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, ...}``
 line.  Any failure exits non-zero before that line.  Without a CUDA device,
 or without the ``podtpu_torch`` package beside it, the script fails.
 """
@@ -158,56 +164,135 @@ def nms_cases(rng):
     return cases
 
 
-def nms_needed_ops(keep, valid) -> int:
+def nms_needed_ops(keep, valid, order=None) -> int:
     """IoUs greedy NMS must evaluate on this data: each kept box against
-    every later valid box of its segment."""
+    every later valid box of its segment, in score order."""
+    if order is not None:
+        keep, valid = keep.gather(1, order), valid.gather(1, order)
     later_valid = valid.flip(-1).cumsum(-1).flip(-1) - valid.long()
     return int((later_valid * keep).sum()) * NMS_OPS_PER_IOU
 
 
+def plain_keep(torch, nms, boxes, valid, t, order=None):
+    """The plain version's keep mask, through ``order`` as the kernel reads
+    and writes it: gather, plain NMS in score order, scatter back."""
+    if order is None:
+        return nms.nms_keep_plain(boxes, valid, t)
+    sb = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    kept = nms.nms_keep_plain(sb, torch.gather(valid, 1, order), t)
+    return torch.zeros_like(kept).scatter_(1, order, kept)
+
+
+def nms_record(torch, nms, name, boxes, valid, t, order=None, timed=False):
+    """K1 on one case against its plain version, twice for equal bits; the
+    kept boxes of each segment; with ``timed``, CUDA-event times of the
+    wrapper and the plain version and the bound."""
+    got = nms.nms_keep_batched(boxes, valid, t, order)
+    again = nms.nms_keep_batched(boxes, valid, t, order)
+    want = plain_keep(torch, nms, boxes, valid, t, order)
+    torch.cuda.synchronize()
+    rec = {"phase": "kernels", "kernel": "nms", "case": name,
+           "shape": list(boxes.shape), "threshold": t,
+           "order": order is not None, "kept": int(got.sum()),
+           "kept_per_segment": got.sum(-1).tolist(),
+           "valid": int(valid.sum()),
+           "mismatches": int((got != want).sum()),
+           "equal_bits_twice": bool(torch.equal(got, again))}
+    if timed:
+        ms = time_ms(lambda: nms.nms_keep_batched(boxes, valid, t, order))
+        plain_ms = time_ms(lambda: plain_keep(torch, nms, boxes, valid, t,
+                                              order), reps=20)
+        nbytes = boxes.shape[0] * boxes.shape[1] * (
+            16 + 1 + 1 + (8 if order is not None else 0))
+        ops = nms_needed_ops(got, valid, order)
+        t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+        rec.update(kernel_ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops) * 1e3, bytes=nbytes, ops=ops,
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
+    emit(rec)
+    if rec["mismatches"] or not rec["equal_bits_twice"]:
+        raise AssertionError(f"nms {name}: {rec['mismatches']} keep flags "
+                             "differ from the plain version, or two runs "
+                             "differ")
+    return got, rec
+
+
 def check_nms(torch, nms, dev):
-    """Keep masks against the plain version on every case; the serving
-    cases' times summed per batch (the kernels line reports those)."""
+    """Keep masks against the plain version on every case, each twice for
+    equal bits, and once through the ``order`` path on unsorted input; the
+    serving cases' times summed per batch (the kernels line reports
+    those)."""
     rng = np.random.default_rng(SEED)
     serving = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    worst = 0
     for name, b, v, t in nms_cases(rng):
         boxes = torch.from_numpy(b).to(dev)
         valid = torch.from_numpy(v).to(dev)
-        got = nms.nms_keep_batched(boxes, valid, t)
-        want = nms.nms_keep_plain(boxes, valid, t)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        worst = max(worst, mismatches)
+        timed = name.startswith(("rpn", "postprocess", "train"))
+        got, rec = nms_record(torch, nms, name, boxes, valid, t, timed=timed)
         if name.startswith("adversarial"):
             assert bool(got[0, 0]) and not bool(got[0, 1]) and bool(got[0, 2])
         if name.startswith("identical"):
             assert bool(got[0, 0]) and not bool(got[0, 1:].any())
-        rec = {"phase": "kernels", "kernel": "nms", "case": name,
-               "shape": list(b.shape), "threshold": t,
-               "kept": int(got.sum()), "mismatches": mismatches}
-        if name.startswith(("rpn", "postprocess", "train")):
-            ms = time_ms(lambda: nms.nms_keep_batched(boxes, valid, t))
-            plain_ms = time_ms(lambda: nms.nms_keep_plain(boxes, valid, t),
-                               reps=20)
-            nbytes = b.shape[0] * b.shape[1] * (16 + 1 + 1)
-            ops = nms_needed_ops(want, valid)
-            bound = max(nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-            rec.update(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                       bytes=nbytes, ops=ops,
-                       bound_by="operations" if ops / F32_OPS_PER_S
-                       > nbytes / MEM_BYTES_PER_S else "bytes")
-            if not name.startswith("train"):
-                serving["ms"] += ms
-                serving["plain_ms"] += plain_ms
-                serving["bound_ms"] += bound
-                serving["bound_by"] = rec["bound_by"]
-        emit(rec)
-        if mismatches:
-            raise AssertionError(f"nms {name}: {mismatches} keep flags differ "
-                                 "from the plain version")
-    serving["max_abs_err"] = float(worst)
+        if timed and not name.startswith("train"):
+            serving["ms"] += rec["kernel_ms"]
+            serving["plain_ms"] += rec["plain_ms"]
+            serving["bound_ms"] += rec["bound_ms"]
+            serving["bound_by"] = rec["bound_by"]
+    # Unsorted input through the order path: the same boxes shuffled, with
+    # scores that put them back in their first order.
+    b, v, t = nms_cases(np.random.default_rng(SEED))[0][1:]
+    perm = np.stack([rng.permutation(b.shape[1]) for _ in range(b.shape[0])])
+    boxes = torch.from_numpy(np.take_along_axis(b, perm[..., None], 1)).to(dev)
+    valid = torch.from_numpy(np.take_along_axis(v, perm, 1)).to(dev)
+    scores = -torch.from_numpy(perm).to(dev).float()
+    order = nms.sort_by_score(scores, valid)
+    got, _ = nms_record(torch, nms, "rpn_s20_n1000_unsorted", boxes, valid,
+                        t, order=order, timed=True)
+    sorted_path = nms.nms_keep_batched(torch.from_numpy(b).to(dev),
+                                       torch.from_numpy(v).to(dev), t)
+    segments = nms.nms_keep_segments(boxes, scores, t, valid)
+    back = torch.gather(sorted_path, 1, torch.from_numpy(perm).to(dev))
+    if not (torch.equal(got, back) and torch.equal(segments, got)):
+        raise AssertionError("nms: the order path differs from the sorted "
+                             "path")
+    serving["max_abs_err"] = 0.0
     return serving
+
+
+def capture_nms(nms, run):
+    """The inputs of every K1 call that ``run()`` makes, as the main path
+    hands them to ``nms_keep_batched`` (boxes, validity, threshold and
+    order), cloned."""
+    calls = []
+    launch = nms.nms_keep_batched
+
+    def recording(boxes, valid, t, order=None):
+        calls.append((boxes.clone(), valid.clone(), t,
+                      None if order is None else order.clone()))
+        return launch(boxes, valid, t, order)
+
+    nms.nms_keep_batched = recording
+    try:
+        run()
+    finally:
+        nms.nms_keep_batched = launch
+    return calls
+
+
+def check_nms_main_path(torch, nms, captured):
+    """K1 on the inputs the main paths gave it (one serving batch's RPN and
+    postprocess calls, one training step's call): as the path calls it, and
+    in score order through the sorted-form wrapper, against the plain
+    version, twice, with times."""
+    for path, calls in captured:
+        for k, (boxes, valid, t, order) in enumerate(calls):
+            name = f"{path}_call{k}_s{boxes.shape[0]}_n{boxes.shape[1]}"
+            nms_record(torch, nms, name, boxes, valid, t, order, timed=True)
+            if order is not None:
+                sb = torch.gather(boxes, 1,
+                                  order[..., None].expand(-1, -1, 4))
+                nms_record(torch, nms, name + "_sorted", sb.contiguous(),
+                           torch.gather(valid, 1, order), t, timed=True)
 
 
 def roi_boxes(rng, b, k, canvas=1024.0):
@@ -684,10 +769,10 @@ def device_profile(torch, run, reps=3, unit="forward"):
                 for key, us, count in ops]}
 
 
-def serve_slice(torch, card, dev, cfg):
+def serve_slice(torch, card, dev, cfg, captured):
     from podtpu_torch.infer.server import DetectionServer, make_handler
     from podtpu_torch.models.detector import init_parameters, make_detector
-    from podtpu_torch.ops import _build
+    from podtpu_torch.ops import _build, nms
     from podtpu_torch.train.checkpoints import save_labels, save_model
 
     labels = ["radiolarian", "foraminifera", "diatom"]
@@ -759,6 +844,7 @@ def serve_slice(torch, card, dev, cfg):
                     server.model(x)
 
             prof = device_profile(torch, forward)
+            captured.append(("serve", capture_nms(nms, forward)))
         finally:
             httpd.shutdown()
             http_thread.join(timeout=30)
@@ -998,11 +1084,11 @@ def train_breakdown(torch, model, optimizer, cfg, batch, gen, reps=5):
     return {p: statistics.median(v) for p, v in times.items()}
 
 
-def train_slice(torch, card, dev):
+def train_slice(torch, card, dev, captured):
     from podtpu_torch.core.config import Config, ModelConfig
     from podtpu_torch.infer.inference import load_inference_model
     from podtpu_torch.models.detector import init_parameters, make_detector
-    from podtpu_torch.ops import _build
+    from podtpu_torch.ops import _build, nms
     from podtpu_torch.train.checkpoints import save_labels, save_model
     from podtpu_torch.train.optim import make_optimizer
     from podtpu_torch.train.step import make_train_step
@@ -1093,6 +1179,8 @@ def train_slice(torch, card, dev):
         unit="step")
     emit({"phase": "train_breakdown", "batch_size": cfg.train.batch_size,
           "parts_ms": parts, "profile": prof, "card": card})
+    captured.append(("train", capture_nms(
+        nms, lambda: step(batches[0], lr, generator=gen))))
     return launches
 
 
@@ -1116,7 +1204,8 @@ def main() -> int:
     log = (_build.BUILD_DIR / "nvcc.log").read_text()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]})
 
     from podtpu_torch.core.config import ModelConfig
 
@@ -1127,9 +1216,12 @@ def main() -> int:
     bwd_rec = check_roi_align_bwd(torch, roi_align, "cuda")
     check_roi_align_cases(torch, roi_align, "cuda")
     check_reference(torch, "cuda")
-    serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4))
+    captured = []
+    serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4),
+                        captured)
     check_train_reference(torch, "cuda")
-    train = train_slice(torch, card, "cuda")
+    train = train_slice(torch, card, "cuda", captured)
+    check_nms_main_path(torch, nms, captured)
 
     def launches(name):
         by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}

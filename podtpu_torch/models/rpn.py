@@ -110,10 +110,11 @@ def select_proposals(level_logits: Sequence[torch.Tensor],
     valid = torch.stack([F.pad(x, (0, kmax - x.shape[1]))
                          for x in cand_valid], 1) & (scores > NEG_INF / 2)
     b, n_lvl = valid.shape[:2]
+    # stable_topk left each level's candidates in score order.
     keep = nms_keep_segments(boxes.reshape(b * n_lvl, kmax, 4),
                              scores.reshape(b * n_lvl, kmax),
                              cfg.rpn_nms_thresh,
-                             valid.reshape(b * n_lvl, kmax))
+                             valid.reshape(b * n_lvl, kmax), presorted=True)
     flat_scores = torch.where((keep.reshape(b, -1) & valid.reshape(b, -1)),
                               scores.reshape(b, -1),
                               torch.full_like(scores.reshape(b, -1), NEG_INF))

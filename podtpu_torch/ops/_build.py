@@ -127,8 +127,11 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.podtpu_nms_keep.argtypes = [vp, vp, vp, vp, i32, i32, f32, vp]
+    lib.podtpu_nms_keep.argtypes = [vp, vp, vp, vp, vp, i32, i32, f32, i32,
+                                    vp]
     lib.podtpu_nms_keep.restype = i32
+    lib.podtpu_nms_scratch_words.argtypes = [i32]
+    lib.podtpu_nms_scratch_words.restype = ctypes.c_longlong
     lib.podtpu_roi_levels.argtypes = [vp, vp, i32, i32, f32, f32, f32, f32,
                                       f32, vp]
     lib.podtpu_roi_levels.restype = i32

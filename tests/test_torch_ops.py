@@ -211,7 +211,7 @@ class TestNMS:
         with pytest.raises(ValueError):
             nms.nms_keep_batched(torch.zeros(3, 4), torch.ones(3, dtype=bool),
                                  0.5)
-        with pytest.raises(TypeError):
+        with pytest.raises(ValueError, match="boxes must be float32"):
             nms.nms_keep_batched(torch.zeros(1, 3, 4, dtype=torch.float64),
                                  torch.ones(1, 3, dtype=bool), 0.5)
 
