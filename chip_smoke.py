@@ -43,12 +43,32 @@ Phases, one JSON line each:
    follows: CUDA-event times of augmentation, forward and losses, backward
    and optimiser, recorded through the step's ``mark`` hook, and a
    ``torch.profiler`` window of 3 steps.
+8. driver: ``train()`` at the ``Config()`` defaults on a seeded in-memory
+   project (24 canvas-sized images with 1-30 boxes each, three labels;
+   ``podtpu_torch.data.imageio.read_rgb`` replaced by a lookup of seeded
+   arrays, since the card has no image library) for 2 epochs, resumed for
+   a third, then ``evaluate_model`` on the 4 test images: losses finite,
+   the resumed run starting at epoch 2, the artifacts, the model loading
+   on the card, the 12 stats in [-1, 1] and within 0.01 of the last
+   epoch's eval, K3 launched once per step and K1, K2 at least once per
+   step and eval batch; per-epoch times, images/s beside the step loop's.
+   Then one ``evaluate_model`` batch with its K1 and K2 inputs captured,
+   and the train ``Loader``'s batches placed on the card against its host
+   batches;
+9. infer: ``infer()`` over 8 unlabelled in-memory images at batch 4 with
+   that model, at threshold 0.5 (the counted run, K1 and K2 launched), at
+   0 and at the median of the scores the model returns, where it must keep
+   boxes; every kept box finite, above the threshold and inside the canvas
+   divided by the image's scale.  The median run's first batch has its K1
+   and K2 inputs captured.
 
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
-postprocess calls, one training step's call, captured after the timed
-runs): as the path calls it and in score order, against the plain version,
-twice, with times.  Then the ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, ...}``
+postprocess calls, one training step's call, one batch of
+``evaluate_model`` and of ``infer``, captured after the timed runs): as
+the path calls it and in score order, against the plain version, twice,
+with times; and K2 on the captured ``evaluate_model`` and ``infer``
+batches against its float32 plain version, twice, with times.  Then the
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure exits non-zero before that line.  Without a CUDA device,
 or without the ``podtpu_torch`` package beside it, the script fails.
 """
@@ -57,7 +77,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -259,16 +281,17 @@ def check_nms(torch, nms, dev):
     return serving
 
 
-def capture_nms(nms, run):
-    """The inputs of every K1 call that ``run()`` makes, as the main path
-    hands them to ``nms_keep_batched`` (boxes, validity, threshold and
-    order), cloned."""
+def capture_nms(nms, run, limit=None):
+    """The inputs of the first ``limit`` (default: every) K1 calls that
+    ``run()`` makes, as the main path hands them to ``nms_keep_batched``
+    (boxes, validity, threshold and order), cloned."""
     calls = []
     launch = nms.nms_keep_batched
 
     def recording(boxes, valid, t, order=None):
-        calls.append((boxes.clone(), valid.clone(), t,
-                      None if order is None else order.clone()))
+        if limit is None or len(calls) < limit:
+            calls.append((boxes.clone(), valid.clone(), t,
+                          None if order is None else order.clone()))
         return launch(boxes, valid, t, order)
 
     nms.nms_keep_batched = recording
@@ -280,10 +303,11 @@ def capture_nms(nms, run):
 
 
 def check_nms_main_path(torch, nms, captured):
-    """K1 on the inputs the main paths gave it (one serving batch's RPN and
-    postprocess calls, one training step's call): as the path calls it, and
-    in score order through the sorted-form wrapper, against the plain
-    version, twice, with times."""
+    """K1 on the inputs the main paths gave it (one batch's RPN and
+    postprocess calls of serving, ``evaluate_model`` and ``infer``, one
+    training step's call): as the path calls it, and in score order through
+    the sorted-form wrapper, against the plain version, twice, with
+    times."""
     for path, calls in captured:
         for k, (boxes, valid, t, order) in enumerate(calls):
             name = f"{path}_call{k}_s{boxes.shape[0]}_n{boxes.shape[1]}"
@@ -293,6 +317,69 @@ def check_nms_main_path(torch, nms, captured):
                                   order[..., None].expand(-1, -1, 4))
                 nms_record(torch, nms, name + "_sorted", sb.contiguous(),
                            torch.gather(valid, 1, order), t, timed=True)
+
+
+def capture_roi_align(run, limit=None):
+    """The inputs of the first ``limit`` (default: every) K2 calls that
+    ``run()`` makes through the box head's pooling
+    (``models.roi_heads.batched_roi_align``), cloned."""
+    from podtpu_torch.models import roi_heads
+
+    calls = []
+    launch = roi_heads.batched_roi_align
+
+    def recording(levels, boxes, strides, **kwargs):
+        if limit is None or len(calls) < limit:
+            calls.append(([f.detach().clone() for f in levels],
+                          boxes.detach().clone(), tuple(strides), kwargs))
+        return launch(levels, boxes, strides, **kwargs)
+
+    roi_heads.batched_roi_align = recording
+    try:
+        run()
+    finally:
+        roi_heads.batched_roi_align = launch
+    return calls
+
+
+def check_roi_align_main_path(torch, roi_align, captured):
+    """K2 on the inputs the main paths gave it, called as the path calls
+    it, against the float32 plain run on the same inputs (atol 2e-2, rtol
+    1e-2, as ``check_roi_align``), twice for equal bits, with times and the
+    bound of this data."""
+    for path, calls in captured:
+        for k, (levels, boxes, strides, kw) in enumerate(calls):
+            got = roi_align.batched_roi_align(levels, boxes, strides, **kw)
+            again = roi_align.batched_roi_align(levels, boxes, strides, **kw)
+            levels32 = [f.float() for f in levels]
+            want = roi_align.batched_roi_align_plain(levels32, boxes,
+                                                     strides, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want).abs().max())
+            ok = bool(torch.allclose(got.float(), want, atol=2e-2,
+                                     rtol=1e-2))
+            same = bool(torch.equal(got, again))
+            ms = time_ms(lambda: roi_align.batched_roi_align(
+                levels, boxes, strides, **kw))
+            plain_ms = time_ms(lambda: roi_align.batched_roi_align_plain(
+                levels32, boxes, strides, **kw), reps=20)
+            out, ratio = kw.get("output_size", 7), kw.get("sampling_ratio", 2)
+            nbytes, ops, touched = roi_bound(torch, roi_align, levels, boxes,
+                                             strides, out, ratio)
+            t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+            emit({"phase": "kernels", "kernel": "roi_align_fwd",
+                  "case": f"{path}_call{k}_b{boxes.shape[0]}"
+                          f"_k{boxes.shape[1]}_{str(levels[0].dtype)[6:]}",
+                  "shape": list(got.shape), "max_abs_err": err,
+                  "within_tolerance": ok, "equal_bits_twice": same,
+                  "kernel_ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes,
+                  "ops": ops, "touched_cells": touched,
+                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            if not (ok and same):
+                raise AssertionError(
+                    f"roi_align {path} call {k}: max abs error {err} "
+                    f"(atol 2e-2, rtol 1e-2), equal bits twice {same}")
 
 
 def roi_boxes(rng, b, k, canvas=1024.0):
@@ -1181,7 +1268,402 @@ def train_slice(torch, card, dev, captured):
           "parts_ms": parts, "profile": prof, "card": card})
     captured.append(("train", capture_nms(
         nms, lambda: step(batches[0], lr, generator=gen))))
-    return launches
+    return {"launches": launches, "images_per_s": rec["images_per_s"]}
+
+
+# -- phases 8 and 9: the training driver and batch inference -----------------
+
+DRIVER_LABELS = ["radiolarian", "foraminifera", "diatom"]
+
+
+def in_memory_images(rng, n, size, with_boxes=True):
+    """``n`` seeded canvases, path -> uint8 image, and their boxes: dark
+    noise with 1-30 filled boxes of 16-256 px, a brightness per label."""
+    from podtpu_torch.data import ImageMetadata, RectangleAnnotation
+
+    batch = synthetic_batch(rng, n, size, 30, classes=len(DRIVER_LABELS))
+    images, metas = {}, []
+    for i in range(n):
+        img = (batch["image"][i] // 3).copy()
+        meta = ImageMetadata(f"{'driver' if with_boxes else 'infer'}_{i:03d}"
+                             ".png", "/in-memory", dataset_id=1, frame_id=i)
+        valid = batch["valid"][i]
+        for (x1, y1, x2, y2), lab in zip(batch["boxes"][i][valid],
+                                         batch["labels"][i][valid]):
+            img[int(y1):int(y2), int(x1):int(x2)] = 120 + 40 * int(lab)
+            if with_boxes:
+                meta.add_annotation(RectangleAnnotation(
+                    x1, y1, x2 - x1, y2 - y1, DRIVER_LABELS[lab - 1]))
+        images[meta.full_path] = img
+        metas.append(meta)
+    return images, metas
+
+
+@contextlib.contextmanager
+def driver_hooks(torch, driver, rec):
+    """Record, without extra device syncs, what one ``train()`` call does:
+    each epoch's start (the train loader's ``set_epoch``), its steps and
+    their loss tensors, its eval (stats, batches, start and end), its
+    scheduler loss and its checkpoint's end."""
+    saved = {k: getattr(driver, k) for k in ("Loader", "make_train_step",
+                                             "evaluate", "make_scheduler")}
+    save_ckpt = driver.ckpt.save_train_checkpoint
+
+    class Loader(saved["Loader"]):
+        def set_epoch(self, epoch):
+            rec["epochs"].append({"epoch": epoch,
+                                  "start": time.perf_counter(), "steps": 0})
+            super().set_epoch(epoch)
+
+    def make_train_step(*args, **kwargs):
+        step = saved["make_train_step"](*args, **kwargs)
+
+        def counted(batch, lr, **kw):
+            metrics = step(batch, lr, **kw)
+            rec["epochs"][-1]["steps"] += 1
+            rec["step_losses"].append(metrics["loss"])
+            return metrics
+
+        return counted
+
+    def evaluate(forward, loader, *args, **kwargs):
+        t0 = time.perf_counter()
+        ev, stats = saved["evaluate"](forward, loader, *args, **kwargs)
+        last = rec["epochs"][-1] if rec["epochs"] else {}
+        last.update(eval_start=t0, eval_end=time.perf_counter(),
+                    eval_batches=len(loader),
+                    eval_images=len(loader.indices), stats=list(stats))
+        return ev, stats
+
+    def make_scheduler(*args, **kwargs):
+        sched = saved["make_scheduler"](*args, **kwargs)
+        step = sched.step
+
+        def logged(epoch, loss):
+            rec["epochs"][-1]["loss"] = loss
+            return step(epoch, loss)
+
+        sched.step = logged
+        return sched
+
+    def save_train_checkpoint(*args, **kwargs):
+        save_ckpt(*args, **kwargs)
+        rec["epochs"][-1]["end"] = time.perf_counter()
+
+    for k, v in (("Loader", Loader), ("make_train_step", make_train_step),
+                 ("evaluate", evaluate), ("make_scheduler", make_scheduler)):
+        setattr(driver, k, v)
+    driver.ckpt.save_train_checkpoint = save_train_checkpoint
+    try:
+        yield rec
+    finally:
+        for k, v in saved.items():
+            setattr(driver, k, v)
+        driver.ckpt.save_train_checkpoint = save_ckpt
+
+
+def driven(torch, driver, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the launch counts set to 0 just before
+    and read just after, its printout sent to stderr, and the driver's
+    hooks recording; returns (result, launches, record, seconds)."""
+    from podtpu_torch.ops import _build
+
+    rec = {"epochs": [], "step_losses": []}
+    with driver_hooks(torch, driver, rec), \
+            contextlib.redirect_stdout(sys.stderr):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: _build.launches[k]
+                    for k in ("nms", "roi_align_fwd", "roi_align_bwd")}
+    return out, launches, rec, seconds
+
+
+def check_driver_launches(name, launches, steps, eval_batches):
+    """K3 once per train step; K1 and K2 at least once per step and eval
+    batch (K1 runs twice per eval batch: RPN and postprocess)."""
+    want = {"roi_align_bwd": steps,
+            "nms": steps + eval_batches, "roi_align_fwd": steps + eval_batches}
+    if launches["roi_align_bwd"] != steps or any(
+            launches[k] < v for k, v in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected K3 = "
+                             f"{steps} and K1, K2 >= {steps + eval_batches}")
+
+
+def epoch_lines(rec, batch_size):
+    out = []
+    for e in rec["epochs"]:
+        train_s = e["eval_start"] - e["start"]
+        eval_s = e["eval_end"] - e["eval_start"]
+        out.append({"epoch": e["epoch"], "steps": e["steps"],
+                    "wall_s": e["end"] - e["start"], "train_s": train_s,
+                    "eval_s": eval_s,
+                    "train_images_per_s": e["steps"] * batch_size / train_s,
+                    "eval_images_per_s": e["eval_images"] / eval_s,
+                    "eval_share": eval_s / (e["end"] - e["start"]),
+                    "loss": e["loss"], "stats": e["stats"]})
+    return out
+
+
+def check_loader_place(torch, project, dev, size):
+    """The train ``Loader``'s batches copied to ``dev`` (on its side
+    stream, from pinned memory) equal its host batches, for one shuffled
+    epoch."""
+    from podtpu_torch.data.dataset import DetectionDataset
+    from podtpu_torch.data.loader import Loader
+
+    ds = DetectionDataset(project, image_size=size, max_gt=100,
+                          label_names=DRIVER_LABELS, cache=False)
+    kw = dict(batch_size=2, shuffle=True, seed=0, num_workers=2)
+    same = True
+    for (host, hv), (placed, pv) in zip(Loader(ds, **kw),
+                                        Loader(ds, place=dev, **kw)):
+        same &= bool((hv == pv).all()) and set(host) == set(placed)
+        same &= all(placed[k].device.type == torch.device(dev).type
+                    and torch.equal(placed[k].cpu(),
+                                    torch.from_numpy(host[k]))
+                    for k in host)
+    return same
+
+
+def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
+                 size=(1024, 1024), n_images=24):
+    """``train()`` on a seeded in-memory project (2 epochs, then resumed
+    for a third), ``evaluate_model`` on its 4 test images, and checks.
+    Returns the model directory's parent (a temporary directory), the
+    model directory, the launches by path and the K1 and K2 inputs of one
+    ``evaluate_model`` batch."""
+    from podtpu_torch.data import Project, imageio
+    from podtpu_torch.data.dataset import train_test_split
+    from podtpu_torch.infer.inference import load_inference_model
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train import train as driver
+    from podtpu_torch.train.checkpoints import load_train_checkpoint
+
+    images, metas = in_memory_images(np.random.default_rng(SEED + 8),
+                                     n_images, size)
+    project = Project()
+    for m in metas:
+        project.add_image(m)
+    tmp = tempfile.mkdtemp(prefix="podtpu_driver_")
+    kw = dict(output_dir=tmp, name="driver", batch_size=2, seed=0,
+              config=config, device=dev)
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, first, rec1, s1 = driven(torch, driver, driver.train,
+                                            project, max_epochs=2, **kw)
+        after_first = load_train_checkpoint(model_dir)["epoch"]
+        _, resumed, rec2, s2 = driven(torch, driver, driver.train, project,
+                                      max_epochs=3, resume=True, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, test_idx = train_test_split(len(metas), 0.2, 1)
+        test_project = Project()
+        for i in test_idx:
+            test_project.add_image(metas[int(i)])
+        stats, evaluated, rec3, s3 = driven(
+            torch, driver, driver.evaluate_model, test_project, model_dir,
+            batch_size=2, device=dev)
+        with contextlib.redirect_stdout(sys.stderr):
+            _, loaded, _, labels = load_inference_model(model_dir, device=dev)
+            loaded_on = next(loaded.parameters()).device.type
+            del loaded
+            # One batch of evaluate_model (its first two test images), its
+            # K1 and K2 inputs captured for the checks against the plain
+            # versions, outside the counted run.
+            one_batch = Project()
+            for i in test_idx[:2]:
+                one_batch.add_image(metas[int(i)])
+            nms_calls = []
+
+            def eval_one_batch():
+                nms_calls.extend(capture_nms(
+                    nms, lambda: driver.evaluate_model(
+                        one_batch, model_dir, batch_size=2, device=dev)))
+
+            roi_calls = capture_roi_align(eval_one_batch)
+        placed = check_loader_place(torch, project, dev, size)
+    finally:
+        imageio.read_rgb = read_rgb
+    epochs = epoch_lines(rec1, 2) + epoch_lines(rec2, 2)
+    steps1 = sum(e["steps"] for e in rec1["epochs"])
+    steps2 = sum(e["steps"] for e in rec2["epochs"])
+    losses = [float(v) for v in rec1["step_losses"] + rec2["step_losses"]]
+    last = rec2["epochs"][-1]
+    artifacts = {name: os.path.exists(os.path.join(model_dir, name))
+                 for name in ("model.msgpack", "config.json", "labels.txt",
+                              "results.txt", "results_per_class.txt",
+                              "checkpoint.pt")}
+    stats_gap = max(abs(a - b) for a, b in zip(stats, last["stats"]))
+    train_s = sum(e["train_s"] for e in epochs[1:])
+    train_images = sum(e["steps"] * 2 for e in epochs[1:])
+    rec = {"phase": "driver", "model": "faster_rcnn_resnet50_fpn",
+           "image_size": list(size), "images": n_images,
+           "train_images": n_images - len(test_idx),
+           "test_images": len(test_idx), "batch_size": 2,
+           "decode": "podtpu_torch.data.imageio.read_rgb replaced by a "
+                     "seeded in-memory reader keyed by path (the card has "
+                     "no Pillow or OpenCV)",
+           "epochs": epochs, "steps": steps1 + steps2,
+           "train_call_s": [s1, s2], "evaluate_model_s": s3,
+           "resumed_from_epoch": after_first,
+           "resumed_first_epoch": rec2["epochs"][0]["epoch"],
+           "train_images_per_s_steady": train_images / train_s,
+           "step_loop_images_per_s": step_loop_images_per_s,
+           "driver_over_step_loop": step_loop_images_per_s
+           / (train_images / train_s),
+           "eval_images_per_s": [e["eval_images_per_s"] for e in epochs],
+           "epoch_losses": [e["loss"] for e in epochs],
+           "stats": last["stats"], "evaluate_model_stats": stats,
+           "evaluate_model_max_gap": stats_gap, "labels": labels,
+           "artifacts": artifacts, "loaded_on": loaded_on,
+           "launches": {"train": first, "train_resumed": resumed,
+                        "evaluate_model": evaluated},
+           "peak_memory_gib": peak, "loader_place_equal": placed,
+           "card": card}
+    emit(rec)
+    bad = []
+    if not all(np.isfinite(v) for v in losses) or len(losses) != (
+            steps1 + steps2):
+        bad.append("a logged loss is not finite")
+    if after_first != 1 or rec["resumed_first_epoch"] != 2:
+        bad.append("the resumed run did not start at epoch 2")
+    if not all(artifacts.values()) or loaded_on != torch.device(dev).type \
+            or sorted(labels) != sorted(DRIVER_LABELS):
+        bad.append(f"artifacts {artifacts}, loaded on {loaded_on}")
+    if len(stats) != 12 or not all(np.isfinite(v) and -1 <= v <= 1
+                                   for v in stats + last["stats"]):
+        bad.append("stats not finite or outside [-1, 1]")
+    if stats_gap > 0.01:
+        bad.append(f"evaluate_model differs from the last epoch's eval by "
+                   f"{stats_gap}")
+    if not placed:
+        bad.append("the Loader's batches placed on the card differ from "
+                   "its host batches")
+    if len(nms_calls) != 2 or len(roi_calls) != 1:
+        bad.append(f"one evaluate_model batch made {len(nms_calls)} K1 and "
+                   f"{len(roi_calls)} K2 calls, expected 2 and 1")
+    for name, launches, recd in (("train", first, rec1),
+                                 ("train_resumed", resumed, rec2)):
+        check_driver_launches(
+            name, launches, sum(e["steps"] for e in recd["epochs"]),
+            sum(e["eval_batches"] for e in recd["epochs"]))
+    check_driver_launches("evaluate_model", evaluated, 0,
+                          -(-len(test_idx) // 2))
+    if bad:
+        raise AssertionError(f"driver: {bad}")
+    return tmp, model_dir, {"driver": {k: first[k] + resumed[k]
+                                       for k in first},
+                            "evaluate_model": evaluated}, (nms_calls,
+                                                           roi_calls)
+
+
+def kept_boxes(result, metas):
+    """Per image, the annotations ``infer`` kept, as ``[x, y, w, h,
+    score]`` rows."""
+    return [np.array([[b.x, b.y, b.width, b.height, b.score]
+                      for b in result.image_dict[m.id].boxes], np.float64)
+            .reshape(-1, 5) if m.id in result.image_dict
+            else np.zeros((0, 5)) for m in metas]
+
+
+def infer_phase(torch, card, dev, model_dir, size=(1024, 1024), n=8):
+    """``infer()`` over ``n`` unlabelled in-memory images at batch 4 with
+    the trained model directory: at threshold 0.5 (the counted run), at 0
+    (every detection's score) and at the median of those scores, where
+    boxes must be kept.  Every kept box is finite, scores lie above the
+    threshold and at most 1, and boxes lie inside the canvas divided by
+    the image's scale.  Returns the launches of the counted run and the K1
+    and K2 inputs of the median run's first batch."""
+    from podtpu_torch.data import Project, imageio
+    from podtpu_torch.infer import inference
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train import train as driver
+
+    images, metas = in_memory_images(np.random.default_rng(SEED + 9), n,
+                                     size, with_boxes=False)
+    project = Project()
+    for m in metas:
+        project.add_image(m)
+    load = inference.load_inference_model
+    load_s = []
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    def run(threshold):
+        return inference.infer(project, model_dir, threshold=threshold,
+                               batch_size=4, device=dev)
+
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    inference.load_inference_model = timed_load
+    try:
+        result, launches, _, seconds = driven(torch, driver, run, 0.5)
+        with contextlib.redirect_stdout(sys.stderr):
+            every = kept_boxes(run(0.0), metas)
+            scores = np.concatenate([k[:, 4] for k in every])
+            median = float(np.median(scores)) if len(scores) else 1.0
+            nms_calls = []
+
+            def median_run():
+                nms_calls.extend(capture_nms(
+                    nms, lambda: median_result.append(run(median)), limit=2))
+
+            median_result = []
+            roi_calls = capture_roi_align(median_run, limit=1)
+    finally:
+        imageio.read_rgb = read_rgb
+        inference.load_inference_model = load
+    passes = {0.5: kept_boxes(result, metas), 0.0: every,
+              median: kept_boxes(median_result[0], metas)}
+    bad = []
+    for threshold, kept in passes.items():
+        for m, k in zip(metas, kept):
+            # The canvas is ``size``; an image's scale is fit_resize's.
+            h, w = images[m.full_path].shape[:2]
+            scale = min(size[0] / h, size[1] / w)
+            x, y, bw, bh, sc = k.T
+            if not (np.isfinite(k).all() and (sc > threshold).all()
+                    and (sc <= 1).all() and (bw >= 0).all()
+                    and (bh >= 0).all() and (x >= 0).all()
+                    and (y >= 0).all()
+                    and (x + bw <= size[1] / scale + 1e-3).all()
+                    and (y + bh <= size[0] / scale + 1e-3).all()):
+                bad.append(f"threshold {threshold}: a box of {m.id} is not "
+                           "finite, above the threshold or inside the "
+                           "canvas")
+    kept_median = [len(k) for k in passes[median]]
+    if not sum(kept_median):
+        bad.append(f"no box kept at the median score {median}")
+    rec = {"phase": "infer", "images": n, "batch_size": 4,
+           "threshold": 0.5, "wall_s": seconds, "model_load_s": load_s[0],
+           "images_per_s": n / seconds,
+           "images_per_s_after_load": n / (seconds - load_s[0]),
+           "annotations_per_image": [len(k) for k in passes[0.5]],
+           "detections_per_image": [len(k) for k in every],
+           "median_score": median,
+           "annotations_per_image_at_median": kept_median,
+           "launches": launches, "card": card}
+    emit(rec)
+    batches = -(-n // 4)
+    if launches["nms"] < 2 * batches or launches["roi_align_fwd"] < batches \
+            or launches["roi_align_bwd"]:
+        bad.append(f"launches {launches}")
+    if len(nms_calls) != 2 or len(roi_calls) != 1:
+        bad.append(f"captured {len(nms_calls)} K1 and {len(roi_calls)} K2 "
+                   "calls of one batch, expected 2 and 1")
+    if bad:
+        raise AssertionError(f"infer: {bad}")
+    return launches, (nms_calls, roi_calls)
 
 
 def main() -> int:
@@ -1221,10 +1703,24 @@ def main() -> int:
                         captured)
     check_train_reference(torch, "cuda")
     train = train_slice(torch, card, "cuda", captured)
+    tmp, model_dir, driver, (eval_nms, eval_roi) = driver_phase(
+        torch, card, "cuda", train["images_per_s"])
+    try:
+        infer, (infer_nms, infer_roi) = infer_phase(torch, card, "cuda",
+                                                    model_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    captured += [("evaluate_model", eval_nms), ("infer", infer_nms)]
     check_nms_main_path(torch, nms, captured)
+    check_roi_align_main_path(torch, roi_align, [("evaluate_model", eval_roi),
+                                                 ("infer", infer_roi)])
 
     def launches(name):
-        by_path = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
+        by_path = {"serve": serve.get(name, 0),
+                   "train": train["launches"].get(name, 0),
+                   "driver": driver["driver"][name],
+                   "evaluate_model": driver["evaluate_model"][name],
+                   "infer": infer[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 

@@ -1,14 +1,45 @@
-"""Canvas fitting for detection inputs.
+"""Host-side detection dataset: decode, fit-resize, pad, fixed-shape targets.
 
-Counterpart of ``podtpu/data/dataset.py::fit_resize``.  OpenCV (or Pillow
-where OpenCV is missing) is imported only when an image really needs
-resizing, so a canvas-sized array is served with no image library.
+Counterpart of ``podtpu/data/dataset.py`` (``Sample``, ``fit_resize``,
+``DetectionDataset``, ``train_test_split``, ``collate``).  Every sample is
+fit-resized (aspect-preserving) onto a fixed canvas and padded bottom/right;
+targets are fixed-capacity ``[max_gt]`` arrays with a validity mask, and the
+resize scale is kept so detections map back to original image coordinates.
+
+Images are decoded one sample at a time through
+:func:`podtpu_torch.data.imageio.read_rgb` (looked up on the module at each
+call, so a caller can replace the decoder) and resized by :func:`fit_resize`:
+the JAX package's per-sample path.  Its batch path through the native C++
+decoder (``podtpu/core/native.py``) has no counterpart here.  OpenCV (or
+Pillow where OpenCV is missing) is imported only when an image really needs
+resizing, so a canvas-sized image needs no image library.  Box targets only:
+mask and keypoint targets wait for ROADMAP.md items 10 and 11.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from podtpu_torch.data import imageio
+from podtpu_torch.data.project import Project
+
+
+@dataclass
+class Sample:
+    image: np.ndarray        # [H, W, 3] uint8, canvas-sized
+    boxes: np.ndarray        # [G, 4] float32 xyxy, canvas coords
+    labels: np.ndarray       # [G] int32, 1-based; 0 on invalid slots
+    valid: np.ndarray        # [G] bool
+    scale: float             # canvas px per original px
+    original_size: Tuple[int, int]  # (h, w)
+    index: int
+    # False when the image failed to decode: the sample is a zero canvas
+    # with no gt, and the loader folds it into batch_valid so training and
+    # evaluation ignore it.
+    ok: bool = True
 
 
 def fit_resize(image: np.ndarray, canvas: Tuple[int, int]):
@@ -30,3 +61,131 @@ def fit_resize(image: np.ndarray, canvas: Tuple[int, int]):
             (nw, nh), Image.BILINEAR)), scale
     interp = cv2.INTER_LINEAR if scale >= 1 else cv2.INTER_AREA
     return cv2.resize(image, (nw, nh), interpolation=interp), scale
+
+
+class DetectionDataset:
+    """Fixed-shape samples from a :class:`Project`."""
+
+    def __init__(
+        self,
+        project: Project,
+        image_size: Tuple[int, int] = (1024, 1024),
+        max_gt: int = 100,
+        label_names: Optional[Sequence[str]] = None,
+        with_masks: bool = False,
+        mask_stride: int = 8,
+        with_keypoints: bool = False,
+        num_keypoints: int = 17,
+        cache: object = "auto",
+        cache_budget_bytes: Optional[int] = None,
+    ):
+        if with_masks or with_keypoints:
+            raise NotImplementedError(
+                "podtpu_torch does not port mask and keypoint targets yet "
+                "(ROADMAP.md, items 10 and 11: Mask and Keypoint R-CNN)")
+        self.project = project
+        self.images = list(project.image_dict.values())
+        self.image_size = tuple(image_size)
+        self.max_gt = max_gt
+        # Label -> 1-based index (background = 0).
+        names = list(label_names) if label_names is not None \
+            else list(project.label_names)
+        self.label_names = names
+        self.label_to_index = {n: i + 1 for i, n in enumerate(names)}
+        # Decoded-canvas cache: samples are deterministic per index
+        # (augmentation runs in the train step), so later epochs skip the
+        # decode.  True / False / "auto" (on when the whole dataset fits
+        # ``cache_budget_bytes``, default 2 GiB or $PODTPU_CACHE_BYTES).
+        budget = cache_budget_bytes if cache_budget_bytes is not None else \
+            int(os.environ.get("PODTPU_CACHE_BYTES", 2 << 30))
+        ch, cw = self.image_size
+        fits = len(self.images) * (ch * cw * 3 + max_gt * 16) <= budget
+        enabled = (cache is True) or (cache == "auto" and fits)
+        self._cache: Optional[Dict[int, Sample]] = {} if enabled else None
+        self._warned: set = set()
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def _failed(self, meta, i) -> Sample:
+        if meta.full_path not in self._warned:
+            self._warned.add(meta.full_path)
+            print(f"[podtpu] could not decode {meta.full_path}; "
+                  "skipping image")
+        ch, cw = self.image_size
+        g = self.max_gt
+        return Sample(
+            image=np.zeros((ch, cw, 3), np.uint8),
+            boxes=np.zeros((g, 4), np.float32),
+            labels=np.zeros((g,), np.int32),
+            valid=np.zeros((g,), bool), scale=1.0, original_size=(ch, cw),
+            index=i, ok=False)
+
+    def load(self, i: int) -> Sample:
+        if self._cache is not None and i in self._cache:
+            return self._cache[i]
+        meta = self.images[i]
+        try:
+            arr = imageio.read_rgb(meta.full_path)
+        except Exception:  # any unreadable file becomes an ok=False sample
+            sample = self._failed(meta, i)
+        else:
+            orig_h, orig_w = arr.shape[:2]
+            resized, scale = fit_resize(arr, self.image_size)
+            ch, cw = self.image_size
+            # Canvases stay uint8; the step converts to [0, 1] on the device.
+            canvas = np.zeros((ch, cw, 3), np.uint8)
+            canvas[: resized.shape[0], : resized.shape[1]] = resized
+            sample = self._finish(meta, canvas, scale, (orig_h, orig_w), i)
+        if self._cache is not None:
+            self._cache[i] = sample
+        return sample
+
+    def _finish(self, meta, canvas, scale, original_size, i) -> Sample:
+        ch, cw = self.image_size
+        g = self.max_gt
+        boxes = np.zeros((g, 4), np.float32)
+        labels = np.zeros((g,), np.int32)
+        valid = np.zeros((g,), bool)
+        kept = [b for b in meta.boxes if b.label in self.label_to_index][:g]
+        for j, box in enumerate(kept):
+            x1, y1, x2, y2 = box.coords
+            boxes[j] = np.array([x1, y1, x2, y2]) * scale
+            labels[j] = self.label_to_index[box.label]
+            valid[j] = True
+        np.clip(boxes[:, 0::2], 0, cw, out=boxes[:, 0::2])
+        np.clip(boxes[:, 1::2], 0, ch, out=boxes[:, 1::2])
+        return Sample(image=canvas, boxes=boxes, labels=labels, valid=valid,
+                      scale=scale, original_size=tuple(original_size),
+                      index=i)
+
+    def load_batch(self, indices) -> List[Sample]:
+        return [self.load(int(i)) for i in indices]
+
+
+def train_test_split(
+    n: int, fraction: float = 0.2, seed: int = 1
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Random split: last ``fraction`` of a seeded permutation is the test
+    set (the reference's scheme, `miso/object_detection/training.py:53-57`:
+    fixed seed 1, 20 % test)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    k = int(fraction * n)
+    if k == 0:
+        return perm, perm[:0]
+    return perm[:-k], perm[-k:]
+
+
+def collate(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
+    """Stack samples into one fixed-shape batch dict."""
+    return {
+        "image": np.stack([s.image for s in samples]),
+        "boxes": np.stack([s.boxes for s in samples]),
+        "labels": np.stack([s.labels for s in samples]),
+        "valid": np.stack([s.valid for s in samples]),
+        "scale": np.asarray([s.scale for s in samples], np.float32),
+        "original_size": np.asarray([s.original_size for s in samples],
+                                    np.int32),
+        "index": np.asarray([s.index for s in samples], np.int32),
+    }

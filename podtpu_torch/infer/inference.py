@@ -1,20 +1,43 @@
-"""Model loading for inference.
+"""Model loading and batch inference: auto-annotate a project or a
+directory.
 
-Counterpart of ``podtpu/infer/inference.py::load_inference_model`` and
-``podtpu/train/step.py::make_eval_step``/``split_eval_output``.  Entry
-points run on the GPU unless the caller passes ``device="cpu"``; with no
-GPU and no explicit device they raise rather than fall back to the CPU.
+Counterpart of ``podtpu/infer/inference.py`` (``load_inference_model``,
+``infer``, ``infer_directory``) and of
+``podtpu/train/step.py::make_eval_step``/``split_eval_output``, with the
+reference's contract (`miso/object_detection/inference.py:16-131`):
+
+* ``infer``: optional ``_NV`` label suffix, the labels added to the
+  caller's project, only images with no annotations are run, and each
+  detection with ``score > threshold`` becomes a ``RectangleAnnotation``
+  labelled ``model_labels[label - 1]`` in original-image pixels; returns a
+  new project holding only the detections;
+* ``infer_directory``: the project is every jpg/jpeg/png/bmp/tiff/tif file
+  under a directory, recursively, then the same loop.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``; with
+no GPU and no explicit device they raise rather than fall back to the CPU.
+Mask models' polygons and keypoints wait for ROADMAP.md items 10 and 11.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import copy
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from podtpu_torch.data.annotation import RectangleAnnotation
+from podtpu_torch.data.dataset import DetectionDataset
+from podtpu_torch.data.image import ImageMetadata
+from podtpu_torch.data.loader import Loader
+from podtpu_torch.data.project import Project
 from podtpu_torch.models.detector import make_detector
 from podtpu_torch.models.roi_heads import Detections
 from podtpu_torch.models.weights import state_dict_from_flax
 from podtpu_torch.train.checkpoints import load_model
+
+IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".tiff", ".tif"}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -55,3 +78,92 @@ def split_eval_output(out: Detections) -> Tuple[
     """``(Detections, masks, keypoints)`` of an eval forward.  The models
     ported so far have box heads only, so masks and keypoints are None."""
     return out, None, None
+
+
+def _run_inference(project: Project, model_dir: str,
+                   model_labels: Optional[List[str]],
+                   threshold: float, batch_size: int, nv: bool,
+                   num_workers: int = 4, device=None) -> Project:
+    forward, _, model_cfg, saved_labels = load_inference_model(model_dir,
+                                                               device)
+    if model_labels is None:
+        model_labels = saved_labels
+    if nv:
+        model_labels = [label + "_NV" for label in model_labels]
+    for label in model_labels:
+        project.add_label(None, label, None)
+
+    project = copy.deepcopy(project)
+    project.remove_labelled_images()
+
+    # Single pass over the images: the decoded-canvas cache would only
+    # burn memory here.
+    dataset = DetectionDataset(project, image_size=model_cfg.image_size,
+                               max_gt=model_cfg.max_gt_boxes,
+                               label_names=model_labels, cache=False)
+    loader = Loader(dataset, batch_size, shuffle=False,
+                    num_workers=num_workers)
+
+    out = Project()
+    out.task_names = dict(project.task_names)
+    for batch, batch_valid in loader:
+        det = forward(batch["image"])
+        boxes = det.boxes.float().cpu().numpy()
+        scores = det.scores.float().cpu().numpy()
+        labels = det.labels.cpu().numpy()
+        valid = det.valid.cpu().numpy()
+        for i, ok in enumerate(batch_valid):
+            if not ok:
+                continue
+            meta = dataset.images[int(batch["index"][i])]
+            scale = float(batch["scale"][i])
+            keep = valid[i] & (scores[i] > threshold)
+            for b, s, lab in zip(boxes[i][keep] / scale, scores[i][keep],
+                                 labels[i][keep]):
+                meta.boxes.append(RectangleAnnotation(
+                    float(b[0]), float(b[1]),
+                    float(b[2] - b[0]), float(b[3] - b[1]),
+                    model_labels[int(lab) - 1], score=float(s)))
+            out.add_image(meta)
+    return out
+
+
+def infer(project: Project,
+          model_path: str,
+          model_labels: Optional[List[str]] = None,
+          threshold: float = 0.5,
+          batch_size: int = 2,
+          nv: bool = False,
+          num_workers: int = 4,
+          device=None) -> Project:
+    """Auto-annotate the unlabelled images of ``project``.
+
+    ``model_path`` may be the model directory or any file inside it.
+    """
+    return _run_inference(project, _as_model_dir(model_path), model_labels,
+                          threshold, batch_size, nv, num_workers, device)
+
+
+def infer_directory(input_dir: str,
+                    model_path: str,
+                    model_labels: Optional[List[str]] = None,
+                    threshold: float = 0.5,
+                    batch_size: int = 2,
+                    num_workers: int = 4,
+                    device=None) -> Project:
+    """Auto-annotate every image file under ``input_dir`` (recursive)."""
+    p = Path(input_dir)
+    if not p.exists():
+        raise ValueError(f"Directory does not exist: {input_dir}")
+    filepaths = [path for path in sorted(p.rglob("*.*"))
+                 if path.suffix.lower() in IMAGE_SUFFIXES]
+    project = Project()
+    for i, filepath in enumerate(filepaths):
+        project.add_image(ImageMetadata(str(filepath), "/", 0, i))
+    return _run_inference(project, _as_model_dir(model_path), model_labels,
+                          threshold, batch_size, False, num_workers, device)
+
+
+def _as_model_dir(model_path: str) -> str:
+    p = Path(model_path)
+    return str(p.parent) if p.suffix else str(p)

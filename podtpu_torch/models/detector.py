@@ -160,6 +160,9 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.backbone != "resnet50_fpn":
         return (f"backbone={cfg.backbone!r} (ROADMAP.md, open item 1: the "
                 "mobile trunks)")
+    if cfg.backbone_norm != "frozen":
+        return (f"backbone_norm={cfg.backbone_norm!r} (ROADMAP.md, item 14: "
+                "trainable BatchNorm comes with the mobile trunks)")
     if cfg.box_head_type != "mlp" or cfg.rpn_conv_depth != 1 or cfg.fpn_norm:
         return "the v2 recipe heads (ROADMAP.md, open item 1: v2 recipes)"
     if cfg.with_mask:

@@ -137,3 +137,87 @@ def flax_from_state_dict(state_dict: Dict,
             value = value.detach().cpu().numpy()
         _set(trees[coll], path, _to_flax(kind, np.asarray(value), pool_size))
     return trees["params"], trees["frozen"]
+
+
+def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, object]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _unflatten(flat: Dict[Tuple, object]) -> Dict:
+    tree: Dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def load_pretrained(model, path: str, verbose: bool = True):
+    """Load pretrained weights into ``model`` (in place); returns it.
+
+    Counterpart of ``podtpu/models/weights.py::load_pretrained``.  ``path``
+    is a model directory (or its ``model.msgpack``), merged leaf by leaf in
+    the flax layout as the JAX package merges it: a leaf whose shape
+    differs from the model's (the class-sized heads of a model trained on
+    another label set) keeps the model's value, with a printed line.  Or
+    ``path`` is a ``.pth``/``.pt`` state dict in torchvision's names and
+    layouts (optionally under a ``"state_dict"`` key), loaded with the same
+    shape rule.
+    """
+    import os
+
+    import torch
+
+    from podtpu_torch.shared import msgpack
+
+    pool = model.cfg.roi_pool_size
+    if os.path.isdir(path):
+        path = os.path.join(path, "model.msgpack")
+    copied = skipped = 0
+
+    def skip(name, new_shape, old_shape):
+        nonlocal skipped
+        skipped += 1
+        if verbose:
+            print(f"[pretrained] skipping {name} (shape {new_shape} vs "
+                  f"{old_shape})")
+
+    if path.endswith(".msgpack"):
+        with open(path, "rb") as fp:
+            restored = msgpack.unpackb(fp.read())
+        params, frozen = flax_from_state_dict(model.state_dict(), pool)
+        flat = _flatten({"params": params, "frozen": frozen})
+        for k, v in _flatten(restored).items():
+            if k in flat and np.shape(flat[k]) == np.shape(v):
+                flat[k] = np.asarray(v)
+                copied += 1
+            else:
+                skip("/".join(map(str, k)), np.shape(v),
+                     np.shape(flat.get(k, None)))
+        merged = _unflatten(flat)
+        sd = state_dict_from_flax(merged["params"], merged["frozen"], pool)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in sd.items()})
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        state_dict = payload.get("state_dict", payload)
+        own = model.state_dict()
+        with torch.no_grad():
+            for k, v in state_dict.items():
+                if k in own and tuple(own[k].shape) == tuple(v.shape):
+                    own[k].copy_(v)
+                    copied += 1
+                else:
+                    skip(k, tuple(v.shape),
+                         tuple(own[k].shape) if k in own else None)
+    if verbose:
+        print(f"[pretrained] {copied} tensors loaded, {skipped} skipped "
+              f"from {path}")
+    return model

@@ -99,7 +99,11 @@ def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
     def gather(yi, xi):
         rows = (offset[:, None, None] + yi[:, :, None] * width[:, None, None]
                 + xi[:, None, :])
-        return flat[rows]                                          # [K, n, n, C]
+        # index_select, not flat[rows]: its backward (index_add_) sums in
+        # index order, where indexing's accumulating index_put_ adds from
+        # several CPU threads in no fixed order.
+        return flat.index_select(0, rows.reshape(-1)).reshape(
+            *rows.shape, c)                                        # [K, n, n, C]
 
     # float32 weights promote bf16 features to float32, as in JAX.
     wy_lo_, wy_hi_ = wy_lo[:, :, None, None], wy_hi[:, :, None, None]
