@@ -46,7 +46,7 @@ Phases, one JSON line each:
 8. driver: ``train()`` at the ``Config()`` defaults on a seeded in-memory
    project (24 canvas-sized images with 1-30 boxes each, three labels;
    ``podtpu_torch.data.imageio.read_rgb`` replaced by a lookup of seeded
-   arrays, since the card has no image library) for 2 epochs, resumed for
+   arrays, so that no image library is needed) for 2 epochs, resumed for
    a third, then ``evaluate_model`` on the 4 test images: losses finite,
    the resumed run starting at epoch 2, the artifacts, the model loading
    on the card, the 12 stats in [-1, 1] and within 0.01 of the last
@@ -61,12 +61,25 @@ Phases, one JSON line each:
    boxes; every kept box finite, above the threshold and inside the canvas
    divided by the image's scale.  The median run's first batch has its K1
    and K2 inputs captured.
+10. cli: the port's commands through ``podtpu_torch.cli.main`` against the
+   repository's fake CVAT server (``tests/fake_cvat.py``) on 16 seeded
+   1024^2 PNG frames: ``train-object-detector`` (2 epochs, batch 2) and
+   ``infer-object-detector`` at threshold 0.05 and 0, whose PATCH upload
+   must carry shapes with 4 integer points and known labels; where Pillow
+   imports, ``crop-objects`` and ``infer-object-detector-directory``.  The
+   frames decode through the native host library, built before the first
+   phase (``native_build`` line), or where it did not build through
+   Pillow, or failing both through a lookup of the seeded arrays.  One
+   line per command (wall seconds, images/s, model load, launches, decode
+   path, shapes uploaded or crops); one ``evaluate_model`` batch of the
+   trained model has its K1 and K2 inputs captured.
 
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
-``evaluate_model`` and of ``infer``, captured after the timed runs): as
+``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
+the CLI's model, captured after the timed runs): as
 the path calls it and in score order, against the plain version, twice,
-with times; and K2 on the captured ``evaluate_model`` and ``infer``
+with times; and K2 on the captured ``evaluate_model``, ``infer`` and CLI
 batches against its float32 plain version, twice, with times.  Then the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure exits non-zero before that line.  Without a CUDA device,
@@ -76,17 +89,20 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib.util
 import json
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 from http.server import ThreadingHTTPServer
 
 import numpy as np
@@ -1451,6 +1467,9 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
     tmp = tempfile.mkdtemp(prefix="podtpu_driver_")
     kw = dict(output_dir=tmp, name="driver", batch_size=2, seed=0,
               config=config, device=dev)
+    # The dataset first tries the native decoder on each batch; it cannot
+    # open the /in-memory paths, returns None, and the dataset decodes per
+    # sample through read_rgb, which finds the arrays here.
     read_rgb = imageio.read_rgb
     imageio.read_rgb = images.__getitem__
     try:
@@ -1506,8 +1525,8 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
            "train_images": n_images - len(test_idx),
            "test_images": len(test_idx), "batch_size": 2,
            "decode": "podtpu_torch.data.imageio.read_rgb replaced by a "
-                     "seeded in-memory reader keyed by path (the card has "
-                     "no Pillow or OpenCV)",
+                     "seeded in-memory reader keyed by path (no image "
+                     "files, no image library needed)",
            "epochs": epochs, "steps": steps1 + steps2,
            "train_call_s": [s1, s2], "evaluate_model_s": s3,
            "resumed_from_epoch": after_first,
@@ -1603,6 +1622,8 @@ def infer_phase(torch, card, dev, model_dir, size=(1024, 1024), n=8):
         return inference.infer(project, model_dir, threshold=threshold,
                                batch_size=4, device=dev)
 
+    # As in driver_phase: the native decoder fails on the /in-memory paths
+    # and each batch falls back to read_rgb, which finds the arrays here.
     read_rgb = imageio.read_rgb
     imageio.read_rgb = images.__getitem__
     inference.load_inference_model = timed_load
@@ -1666,6 +1687,274 @@ def infer_phase(torch, card, dev, model_dir, size=(1024, 1024), n=8):
     return launches, (nms_calls, roi_calls)
 
 
+CLI_LABEL_IDS = {name: 10 + i for i, name in enumerate(DRIVER_LABELS)}
+
+
+def png_bytes(img) -> bytes:
+    """An 8-bit RGB PNG of ``img`` ``[H, W, 3]`` uint8, written with the
+    standard library (no image library needed)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def native_build_line():
+    """Build the native host library (decode, COCO matcher) before any
+    timed path, and say whether it built; on failure, the compiler's last
+    lines."""
+    from podtpu_torch.core import native
+
+    t0 = time.perf_counter()
+    try:
+        native.build()
+        error = None
+    except RuntimeError as exc:
+        error = str(exc).strip().splitlines()[-12:]
+    built = error is None and native.available()
+    rec = {"phase": "native_build", "built": built,
+           "seconds": time.perf_counter() - t0,
+           "library": str(native.LIB_PATH), "compiler_tail": error}
+    emit(rec)
+    return built
+
+
+def cli_phase(torch, card, dev, native_built, size=1024, n=16):
+    """The port's commands through ``podtpu_torch.cli.main`` against the
+    repository's fake CVAT server (``tests/fake_cvat.py``): task 5 holds
+    ``n`` seeded PNG frames at ``size``^2 with 1-30 filled boxes of 16-256
+    px in three labels, task 6 the same frames unlabelled, both under
+    ``<root>/7/raw``.  ``train-object-detector`` for 2 epochs at batch 2 and
+    the default 1024 canvas, then ``infer-object-detector`` on task 6 at
+    threshold 0.05 and at 0, whose upload must carry shapes, each with 4
+    integer points and a known label id.  Where Pillow imports,
+    ``crop-objects`` (crops sorted by class) and
+    ``infer-object-detector-directory`` (at threshold 0, crops written) run
+    too.  The frames decode through the native library when it built, else
+    through Pillow (the per-sample fallback), else through a lookup of the
+    seeded arrays (``imageio.read_rgb`` replaced; no device path or kernel
+    is).  One line per command; returns the launches by command and the K1
+    and K2 inputs of one ``evaluate_model`` batch of the trained model."""
+    from podtpu_torch import cli
+    from podtpu_torch.data import imageio
+    from podtpu_torch.data.cvat.client import CvatTask
+    from podtpu_torch.infer import inference
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train import train as driver
+    from tests.fake_cvat import FakeCvatServer, FakeCvatState
+
+    images, metas = in_memory_images(np.random.default_rng(SEED + 10), n,
+                                     (size, size))
+    tmp = tempfile.mkdtemp(prefix="podtpu_cli_")
+    raw = os.path.join(tmp, "cvat", "7", "raw")
+    os.makedirs(raw)
+    frames, shapes, lookup = [], [], {}
+    for i, m in enumerate(metas):
+        name = f"frame_{i:03d}.png"
+        with open(os.path.join(raw, name), "wb") as fp:
+            fp.write(png_bytes(images[m.full_path]))
+        lookup[os.path.join(raw, name)] = images[m.full_path]
+        frames.append(name)
+        for b in m.boxes:
+            x1, y1, x2, y2 = b.coords
+            shapes.append({"id": len(shapes) + 1, "type": "rectangle",
+                           "frame": i, "label_id": CLI_LABEL_IDS[b.label],
+                           "points": [x1, y1, x2, y2], "outside": False})
+    labels = [{"id": v, "name": k, "color": "#ffffff"}
+              for k, v in CLI_LABEL_IDS.items()]
+    state = FakeCvatState()
+    state.add_task(5, "cli_labelled", labels, frames, shapes=shapes)
+    state.add_task(6, "cli_unlabelled", labels, frames)
+    pillow = importlib.util.find_spec("PIL") is not None
+    if native_built:
+        decode = ("native: podtpu_torch.core.native.decode_resize_batch on "
+                  "the PNG files")
+    elif pillow:
+        decode = ("pillow: the native library did not build, so each batch "
+                  "falls back to podtpu_torch.data.imageio.read_rgb (Pillow) "
+                  "and fit_resize per sample, as the JAX package does")
+    else:
+        decode = ("lookup: neither the native library nor Pillow is "
+                  "available, so podtpu_torch.data.imageio.read_rgb is "
+                  "replaced by a lookup of the seeded arrays by path")
+    load = inference.load_inference_model
+    load_s = []
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    read_rgb = imageio.read_rgb
+    if not (native_built or pillow):
+        imageio.read_rgb = lookup.__getitem__
+    inference.load_inference_model = timed_load
+    out_dir = os.path.join(tmp, "models")
+    lines, bad = {}, []
+    batches = -(-n // 2)
+
+    def check_infer_launches(name, launches):
+        if launches["nms"] < 2 * batches or launches[
+                "roi_align_fwd"] < batches or launches["roi_align_bwd"]:
+            bad.append(f"{name}: launches {launches}")
+
+    try:
+        with FakeCvatServer(state) as srv:
+            common = ["--server", srv.url, "--image-root",
+                      os.path.join(tmp, "cvat")]
+            argv = ["train-object-detector", "--tasks", "5", *common,
+                    "--max-epochs", "2", "--alrs-epochs", "2", "-o", out_dir,
+                    "-m", "cli_model",
+                    *([] if size == 1024 else ["--image-size", str(size)])]
+            _, launches, rec, seconds = driven(
+                torch, driver, cli.main, argv, device=dev)
+            steps = sum(e["steps"] for e in rec["epochs"])
+            eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
+            check_driver_launches("cli train-object-detector", launches,
+                                  steps, eval_batches)
+            lines["train"] = {
+                "phase": "cli", "command": "train-object-detector",
+                "argv": argv[:3] + argv[7:11], "image_size": size,
+                "batch_size": 2, "epochs": len(rec["epochs"]),
+                "steps": steps, "eval_batches": eval_batches,
+                "wall_s": seconds, "images_per_s": steps * 2 / seconds,
+                "model_load_s": None,
+                "epoch_losses": [e["loss"] for e in rec["epochs"]],
+                "stats": rec["epochs"][-1]["stats"], "launches": launches,
+                "decode": decode, "shapes_uploaded": None, "card": card}
+            emit(lines["train"])
+            if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
+                bad.append("a train loss is not finite")
+            model_dir = os.path.join(out_dir, "cli_model")
+            for threshold in ("0.05", "0"):
+                before = len(state.patches)
+                del load_s[:]
+                argv = ["infer-object-detector", "--tasks", "6", *common,
+                        "--model-dir", out_dir, "--model", "cli_model",
+                        "--threshold", threshold]
+                _, launches, _, seconds = driven(torch, driver, cli.main,
+                                                 argv, device=dev)
+                uploads = [p for p in state.patches[before:]
+                           if "annotations?action=create" in p["path"]]
+                sent = [s for p in uploads for s in p["body"]["shapes"]]
+                check_infer_launches(f"infer {threshold}", launches)
+                if len(uploads) != 1 or not all(
+                        s["type"] == "rectangle" and len(s["points"]) == 4
+                        and all(isinstance(v, int) for v in s["points"])
+                        and s["label_id"] in CLI_LABEL_IDS.values()
+                        for s in sent):
+                    bad.append(f"infer {threshold}: uploads {len(uploads)}, "
+                               "a shape without 4 integer points or a "
+                               "known label")
+                if threshold == "0" and not sent:
+                    bad.append("infer at threshold 0 uploaded no shape")
+                lines[f"infer_{threshold}"] = {
+                    "phase": "cli", "command": "infer-object-detector",
+                    "argv": argv[:3] + argv[7:], "images": n,
+                    "batch_size": 2, "wall_s": seconds,
+                    "images_per_s": n / seconds, "model_load_s": load_s[0],
+                    "images_per_s_after_load": n / (seconds - load_s[0]),
+                    "launches": launches, "decode": decode,
+                    "shapes_uploaded": len(sent), "card": card}
+                emit(lines[f"infer_{threshold}"])
+            if pillow:
+                crops = os.path.join(tmp, "crops")
+                argv = ["crop-objects", "--tasks", "5", *common, "-o", crops]
+                _, launches, _, seconds = driven(torch, driver, cli.main,
+                                                 argv, device=dev)
+                # Each crop at <time>_5/5 - cli_labelled/<label>/<crop>.
+                written = [os.path.relpath(os.path.join(d, f),
+                                           crops).split(os.sep)
+                           for d, _, fs in os.walk(crops) for f in fs]
+                want = sum(len(m.boxes) for m in metas)
+                if len(written) != want or any(
+                        len(w) != 4 or w[1] != "5 - cli_labelled"
+                        or w[2] not in CLI_LABEL_IDS for w in written) \
+                        or any(launches.values()):
+                    bad.append(f"crop-objects wrote {len(written)} crops "
+                               f"(expected {want} sorted by class), "
+                               f"launches {launches}")
+                lines["crop"] = {
+                    "phase": "cli", "command": "crop-objects",
+                    "wall_s": seconds, "crops": len(written),
+                    "launches": launches, "card": card}
+                emit(lines["crop"])
+                del load_s[:]
+                found = os.path.join(tmp, "directory")
+                argv = ["infer-object-detector-directory", "-i", raw, "-o",
+                        found, "--model-dir", out_dir, "--model",
+                        "cli_model", "--threshold", "0"]
+                _, launches, _, seconds = driven(torch, driver, cli.main,
+                                                 argv, device=dev)
+                written = [os.path.join(d, f) for d, _, fs in os.walk(found)
+                           for f in fs]
+                check_infer_launches("infer-object-detector-directory",
+                                     launches)
+                # Detections of one label whose integer boxes coincide share
+                # a crop's file name, so there may be fewer crops.
+                if not 0 < len(written) <= lines["infer_0"][
+                        "shapes_uploaded"]:
+                    bad.append("infer-object-detector-directory wrote "
+                               f"{len(written)} crops, infer-object-detector"
+                               " uploaded "
+                               f"{lines['infer_0']['shapes_uploaded']} shapes")
+                lines["directory"] = {
+                    "phase": "cli",
+                    "command": "infer-object-detector-directory",
+                    "images": n, "batch_size": 2, "threshold": 0,
+                    "wall_s": seconds, "images_per_s": n / seconds,
+                    "model_load_s": load_s[0],
+                    "images_per_s_after_load": n / (seconds - load_s[0]),
+                    "crops": len(written), "launches": launches,
+                    "decode": decode, "card": card}
+                emit(lines["directory"])
+            else:
+                emit({"phase": "cli", "command": "crop-objects, "
+                      "infer-object-detector-directory", "ran": False,
+                      "why": "both write JPEG crops through Pillow, which "
+                             "does not import here; the CPU tests "
+                             "(tests/test_torch_cli.py) run them",
+                      "card": card})
+            # One evaluate_model batch of the trained model, its K1 and K2
+            # inputs captured for the checks against the plain versions.
+            with contextlib.redirect_stdout(sys.stderr):
+                task = CvatTask(srv.url, 5, image_root=os.path.join(
+                    tmp, "cvat"), debug=False).load()
+                one_batch = type(task.project)()
+                for im in list(task.project.image_dict.values())[:2]:
+                    one_batch.add_image(im)
+                nms_calls = []
+
+                def eval_one_batch():
+                    nms_calls.extend(capture_nms(
+                        nms, lambda: driver.evaluate_model(
+                            one_batch, model_dir, batch_size=2, device=dev)))
+
+                roi_calls = capture_roi_align(eval_one_batch)
+    finally:
+        imageio.read_rgb = read_rgb
+        inference.load_inference_model = load
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(nms_calls) != 2 or len(roi_calls) != 1:
+        bad.append(f"one evaluate_model batch made {len(nms_calls)} K1 and "
+                   f"{len(roi_calls)} K2 calls, expected 2 and 1")
+    if bad:
+        raise AssertionError(f"cli: {bad}")
+    infer_lines = [lines[k] for k in ("infer_0.05", "infer_0", "directory")
+                   if k in lines]
+    return ({"cli_train": lines["train"]["launches"],
+             "cli_infer": {k: sum(ln["launches"][k] for ln in infer_lines)
+                           for k in lines["train"]["launches"]}},
+            (nms_calls, roi_calls))
+
 def main() -> int:
     import torch
 
@@ -1689,6 +1978,8 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]})
 
+    native_built = native_build_line()
+
     from podtpu_torch.core.config import ModelConfig
 
     nms_rec = check_nms(torch, nms, "cuda")
@@ -1710,17 +2001,21 @@ def main() -> int:
                                                     model_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    captured += [("evaluate_model", eval_nms), ("infer", infer_nms)]
+    cli, (cli_nms, cli_roi) = cli_phase(torch, card, "cuda", native_built)
+    captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
+                 ("cli_evaluate_model", cli_nms)]
     check_nms_main_path(torch, nms, captured)
-    check_roi_align_main_path(torch, roi_align, [("evaluate_model", eval_roi),
-                                                 ("infer", infer_roi)])
+    check_roi_align_main_path(torch, roi_align, [
+        ("evaluate_model", eval_roi), ("infer", infer_roi),
+        ("cli_evaluate_model", cli_roi)])
 
     def launches(name):
         by_path = {"serve": serve.get(name, 0),
                    "train": train["launches"].get(name, 0),
                    "driver": driver["driver"][name],
                    "evaluate_model": driver["evaluate_model"][name],
-                   "infer": infer[name]}
+                   "infer": infer[name], "cli_train": cli["cli_train"][name],
+                   "cli_infer": cli["cli_infer"][name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 

@@ -6,14 +6,16 @@ fit-resized (aspect-preserving) onto a fixed canvas and padded bottom/right;
 targets are fixed-capacity ``[max_gt]`` arrays with a validity mask, and the
 resize scale is kept so detections map back to original image coordinates.
 
-Images are decoded one sample at a time through
+:meth:`DetectionDataset.load_batch` decodes a batch through the native C++
+host library (:mod:`podtpu_torch.core.native`), as the JAX package does.
+Where that library is unavailable or an image of the batch fails to decode,
+the batch falls back to the per-sample path: decode through
 :func:`podtpu_torch.data.imageio.read_rgb` (looked up on the module at each
-call, so a caller can replace the decoder) and resized by :func:`fit_resize`:
-the JAX package's per-sample path.  Its batch path through the native C++
-decoder (``podtpu/core/native.py``) has no counterpart here.  OpenCV (or
-Pillow where OpenCV is missing) is imported only when an image really needs
-resizing, so a canvas-sized image needs no image library.  Box targets only:
-mask and keypoint targets wait for ROADMAP.md items 10 and 11.
+call, so a caller can replace the decoder) and :func:`fit_resize`.  OpenCV
+(or Pillow where OpenCV is missing) is imported only when an image really
+needs resizing, so a canvas-sized image needs no image library.  Box
+targets only: mask and keypoint targets wait for ROADMAP.md items 10 and
+11.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from podtpu_torch.core import native
 from podtpu_torch.data import imageio
 from podtpu_torch.data.project import Project
 
@@ -160,7 +163,29 @@ class DetectionDataset:
                       index=i)
 
     def load_batch(self, indices) -> List[Sample]:
-        return [self.load(int(i)) for i in indices]
+        """The samples of ``indices``: cached ones from the cache, the rest
+        decoded as one batch by the native library, or one by one through
+        :meth:`load` when it returns None."""
+        indices = [int(i) for i in indices]
+        todo = indices if self._cache is None else \
+            [i for i in indices if i not in self._cache]
+        fresh: Dict[int, Sample] = {}
+        if todo:
+            metas = [self.images[i] for i in todo]
+            res = native.decode_resize_batch([m.full_path for m in metas],
+                                             self.image_size)
+            if res is None:
+                for i in todo:
+                    fresh[i] = self.load(i)
+            else:
+                canvases, scales, orig_hw = res
+                for j, (meta, idx) in enumerate(zip(metas, todo)):
+                    fresh[idx] = self._finish(
+                        meta, canvases[j], float(scales[j]),
+                        (int(orig_hw[j, 0]), int(orig_hw[j, 1])), idx)
+                if self._cache is not None:
+                    self._cache.update(fresh)
+        return [fresh[i] if i in fresh else self._cache[i] for i in indices]
 
 
 def train_test_split(

@@ -38,9 +38,14 @@ def _capture_bn_stats(model, images) -> Dict[str, tuple]:
     for name, mod in model.named_modules():
         if isinstance(mod, FrozenBatchNorm2d):
             def hook(_m, _inp, out, name=name):
+                # The variance as jnp.var takes it: the mean of squared
+                # deviations in float32, which overflows to inf where the
+                # reference's does, so the non-finite rule below skips the
+                # same layers (torch.var's stays finite there).
                 out = out.float()
-                stats[name] = (out.mean((0, 2, 3)), out.var((0, 2, 3),
-                                                            unbiased=False))
+                mean = out.mean((0, 2, 3))
+                var = ((out - mean[:, None, None]) ** 2).mean((0, 2, 3))
+                stats[name] = (mean, var)
             hooks.append(mod.register_forward_hook(hook))
     try:
         _features(model, images)

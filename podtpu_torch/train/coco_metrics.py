@@ -16,9 +16,10 @@ AP averaged over classes with ground truth.  The reference's modified
 quirk of printing "maxDets=100" in the row names while the values use the
 configured maxDets.
 
-Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``,
-with its pure-numpy matcher (the JAX package calls its native C++ matcher
-when that library loads; both give the same matches).  Mask and keypoint
+Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``:
+the greedy matcher runs in the native C++ host library
+(:mod:`podtpu_torch.core.native`) when it loads, else as a Python loop; both
+give the same matches.  Mask and keypoint
 evaluation wait for ROADMAP.md items 10 and 11.
 """
 from __future__ import annotations
@@ -27,6 +28,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from podtpu_torch.core import native
 
 IOU_THRS = np.round(np.arange(0.5, 1.0, 0.05), 2)  # 10 thresholds
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -141,6 +144,14 @@ class COCOEvaluator:
         g_order = np.argsort(g_ig, kind="stable")
         iou = iou[:, g_order]
         g_ig = g_ig[g_order]
+
+        if D and G:
+            res = native.coco_match(iou, g_ig, d_area, IOU_THRS, rng)
+            if res is not None:
+                dtm_n, dtig_n = res
+                return _ImageEval(dt_scores=d_score, dt_matched=dtm_n,
+                                  dt_ignored=dtig_n,
+                                  num_gt=int((~g_ig).sum()))
 
         dtm = np.zeros((T, D), bool)
         dtig = np.zeros((T, D), bool)

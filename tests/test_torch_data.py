@@ -2,14 +2,14 @@
 against the JAX package's (CPU).
 
 Every comparison is exact (arrays equal, the same text, the same schedule
-state) except the COCO stats, which agree to 1e-9.  The JAX package decodes
-a batch with its native C++ decoder and bilinear resize when that library
-loads; the port decodes per sample through Pillow and ``fit_resize``, which
-is the JAX package's own fallback.  So every JAX dataset and loader here
-runs with ``podtpu.core.native.decode_resize_batch`` patched to return None,
-and both read identical canvases.  The JAX bbox matcher is its native one
-when the library loads, else a Python loop: the port's numpy matcher is
-held against both.
+state) except the COCO stats, which agree to 1e-9.  Both packages decode a
+batch with their native C++ decoder (the port's own build of the same
+source) and fall back to Pillow and ``fit_resize`` per sample when a batch
+holds an unreadable file; both paths read identical canvases.  The Pillow
+path is also held alone, with both packages' ``decode_resize_batch``
+patched to return None.  The bbox matchers are held the same way: native
+in both packages, and the Python loops with both ``coco_match`` patched to
+None.
 """
 import copy
 
@@ -27,6 +27,7 @@ from podtpu.train import alrs as jax_alrs
 from podtpu.train import coco_metrics as jax_coco
 from podtpu.train import schedules as jax_schedules
 from podtpu.core.config import TrainConfig as JaxTrainConfig
+from podtpu_torch.core import native as port_native
 from podtpu_torch.core.config import TrainConfig
 from podtpu_torch.core.logging import MetricLogger, SmoothedValue
 from podtpu_torch.data import (ImageMetadata, PolygonAnnotation, Project,
@@ -68,9 +69,17 @@ def jpeg_project(tmp_path_factory):
     return jp
 
 
-@pytest.fixture
-def no_native_decode(monkeypatch):
-    monkeypatch.setattr(native, "decode_resize_batch", lambda *a, **k: None)
+def pillow_decode(monkeypatch):
+    """Both packages decode per sample through Pillow."""
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "decode_resize_batch", lambda *a, **k: None)
+
+
+def native_libraries_load():
+    probe = (np.ones((1, 1)), np.zeros(1, bool), np.ones(1),
+             jax_coco.IOU_THRS, (0.0, 1e10))
+    assert native.coco_match(*probe) is not None, "JAX's library"
+    assert port_native.coco_match(*probe) is not None, "the port's library"
 
 
 # -- data model ---------------------------------------------------------------
@@ -193,11 +202,16 @@ def _assert_samples_equal(got, want):
     assert (got.index, got.ok) == (want.index, want.ok)
 
 
-def test_dataset_load_and_collate(jpeg_project, no_native_decode, capsys):
+def check_dataset_load_and_collate(jpeg_project, capsys):
     kw = dict(image_size=(128, 128), max_gt=3, label_names=LABELS[:2])
     jds = jax_dataset.DetectionDataset(jpeg_project, **kw)
     pds = dataset.DetectionDataset(port_project(jpeg_project), **kw)
     assert len(pds) == len(jds) == 12
+    readable = list(range(11))  # one batch: native where the library loads
+    got = dataset.collate(pds.load_batch(readable))
+    want = jax_dataset.collate(jds.load_batch(readable))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     for i in range(len(jds)):
         _assert_samples_equal(pds.load(i), jds.load(i))
     assert not pds.load(11).ok and "broken.jpg" in capsys.readouterr().out
@@ -212,13 +226,18 @@ def test_dataset_load_and_collate(jpeg_project, no_native_decode, capsys):
         dataset.DetectionDataset(port_project(jpeg_project), with_masks=True)
 
 
-@pytest.mark.parametrize("shuffle", [False, True])
-def test_loader_batches(jpeg_project, no_native_decode, shuffle):
+def test_dataset_load_and_collate(jpeg_project, capsys):
+    native_libraries_load()
+    check_dataset_load_and_collate(jpeg_project, capsys)
+
+
+def check_loader_batches(jpeg_project, shuffle, num_workers):
     kw = dict(image_size=(96, 96), max_gt=5)
     jds = jax_dataset.DetectionDataset(jpeg_project, **kw)
     pds = dataset.DetectionDataset(port_project(jpeg_project), **kw)
     indices = np.arange(1, 12)  # 11 images at batch 4: a wrapped tail
-    lkw = dict(indices=indices, shuffle=shuffle, seed=5, num_workers=2)
+    lkw = dict(indices=indices, shuffle=shuffle, seed=5,
+               num_workers=num_workers)
     jl = jax_loader.Loader(jds, 4, **lkw)
     pl = loader.Loader(pds, 4, **lkw)
     assert len(pl) == len(jl) == 3
@@ -239,6 +258,44 @@ def test_loader_batches(jpeg_project, no_native_decode, shuffle):
         np.testing.assert_array_equal(
             loader.wrap_batch_indices(np.arange(3), 5, i)[0],
             jax_loader.wrap_batch_indices(np.arange(3), 5, i)[0])
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_loader_batches(jpeg_project, shuffle):
+    """Native decode, one producer thread.  With two, the wrapped duplicate
+    of an image is decoded natively in one batch and per sample in the
+    batch that holds the unreadable file, and whichever thread finishes
+    last leaves its sample in the cache, in both packages; the two samples
+    differ in the scale's float32 rounding."""
+    native_libraries_load()
+    check_loader_batches(jpeg_project, shuffle, num_workers=1)
+
+
+@pytest.mark.parametrize("what", ["dataset", "loader", "loader_shuffled"])
+def test_pillow_decode_path(jpeg_project, monkeypatch, capsys, what):
+    """The per-sample Pillow path of both packages, alone; the loaders with
+    two producer threads."""
+    pillow_decode(monkeypatch)
+    if what == "dataset":
+        check_dataset_load_and_collate(jpeg_project, capsys)
+    else:
+        check_loader_batches(jpeg_project, shuffle=what == "loader_shuffled",
+                             num_workers=2)
+
+
+def test_native_and_pillow_canvases_differ_little(jpeg_project,
+                                                  monkeypatch):
+    """The two decode paths of one package: the same sizes, the same scales
+    (the native one in float32) and canvases within the 5 levels of the two
+    resizes' rounding."""
+    pds = dataset.DetectionDataset(port_project(jpeg_project),
+                                   image_size=(128, 128), cache=False)
+    native_samples = pds.load_batch(range(11))
+    pillow_decode(monkeypatch)
+    for a, b in zip(native_samples, pds.load_batch(range(11))):
+        assert a.original_size == b.original_size
+        assert a.scale == np.float32(b.scale)
+        assert np.abs(a.image.astype(int) - b.image.astype(int)).max() <= 5
 
 
 def test_loader_places_batches_and_forwards_errors(jpeg_project):
@@ -294,11 +351,10 @@ def seeded_detections(seed, n_images=12, classes=3):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_coco_evaluator(matcher, seed, monkeypatch):
     if matcher == "python":
-        monkeypatch.setattr(native, "coco_match", lambda *a, **k: None)
+        for mod in (native, port_native):
+            monkeypatch.setattr(mod, "coco_match", lambda *a, **k: None)
     else:
-        probe = native.coco_match(np.ones((1, 1)), np.zeros(1, bool),
-                                  np.ones(1), jax_coco.IOU_THRS, (0.0, 1e10))
-        assert probe is not None, "the native matcher did not load"
+        native_libraries_load()
     data = seeded_detections(seed)
     jev = jax_coco.COCOEvaluator(num_classes=3)
     pev = coco_metrics.COCOEvaluator(num_classes=3)

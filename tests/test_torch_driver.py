@@ -10,7 +10,8 @@ another model compile; the JAX package loading a port-written directory is
 part of the contract).  The port is fed the draws the JAX step keys give
 (``split(fold_in(loop_rng, epoch), iters)``, through
 ``tests/test_torch_train.py::jax_draws``), and both read the same canvases
-(the JAX package's Pillow decode path; see ``tests/test_torch_data.py``).
+(both packages' native decoders, equal byte for byte; see
+``tests/test_torch_native.py``).
 The port's runs go in a spawned process beside the JAX run.
 
 What is held, and to what:
@@ -68,7 +69,6 @@ import torch
 import jax
 import optax
 
-from podtpu.core import native
 from podtpu.data import device_cache as jax_device_cache
 from podtpu.train import checkpoints as jax_ckpt
 from podtpu.train import train as jax_train
@@ -367,7 +367,6 @@ def runs(tmp_path_factory):
                            pretrained)
         mp = pytest.MonkeyPatch()
         try:
-            mp.setattr(native, "decode_resize_batch", lambda *a, **k: None)
             record(mp, jax_rec, jax_train, jax_ckpt, jax_side=True)
             jax_dir = jax_train.train(project, output_dir=str(root),
                                       name="jax", config=jcfg,

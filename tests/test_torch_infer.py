@@ -8,9 +8,10 @@ to 0.53, so threshold 0.45 keeps some boxes and drops others.  Tolerances:
 the same images, labels and box counts; boxes to 1e-3 px and scores to
 1e-4 (float32 convolutions sum in another order); crops equal byte for
 byte; the 12 COCO stats of ``evaluate_model`` to 1e-3; pretrained tensors
-equal.  JAX decodes through its Pillow fallback here
-(``podtpu.core.native.decode_resize_batch`` patched to None), as the port
-does; see ``tests/test_torch_data.py``.
+equal.  Both packages decode through their native C++ decoders (the same
+canvases, ``tests/test_torch_native.py``); ``infer_directory`` is also held
+on their Pillow fallbacks, with both ``decode_resize_batch`` patched to
+None.
 """
 import copy
 import dataclasses
@@ -33,6 +34,7 @@ from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.train import checkpoints as jax_ckpt
 from podtpu.train import step as jax_step
 from podtpu.train import train as jax_train
+from podtpu_torch.core import native as port_native
 from podtpu_torch.core.config import ModelConfig
 from podtpu_torch.infer import crop, inference
 from podtpu_torch.models.detector import init_parameters, make_detector
@@ -45,11 +47,6 @@ from tests.test_torch_data import port_project
 
 LABELS = ["particle", "bubble"]
 THRESHOLD = 0.45
-
-
-@pytest.fixture(autouse=True)
-def no_native_decode(monkeypatch):
-    monkeypatch.setattr(native, "decode_resize_batch", lambda *a, **k: None)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -145,7 +142,7 @@ def test_infer(setup):
     assert port_nv.label_names == jp.label_names + [n + "_NV" for n in LABELS]
 
 
-def test_infer_directory(setup):
+def check_infer_directory(setup):
     want = jax_inference.infer_directory(str(setup["images"]),
                                          setup["model_dir"],
                                          threshold=THRESHOLD, batch_size=2,
@@ -155,9 +152,20 @@ def test_infer_directory(setup):
                                     num_workers=2, device="cpu")
     assert len(got.image_dict) == 7
     assert assert_same_annotations(got, want) > 0
+
+
+def test_infer_directory(setup):
+    assert native.available() and port_native.available()
+    check_infer_directory(setup)
     with pytest.raises(ValueError, match="does not exist"):
         inference.infer_directory(str(setup["root"] / "nowhere"),
                                   setup["model_dir"], device="cpu")
+
+
+def test_infer_directory_pillow_decode(setup, monkeypatch):
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "decode_resize_batch", lambda *a, **k: None)
+    check_infer_directory(setup)
 
 
 def test_entry_points_need_a_device_without_gpu(setup, monkeypatch):

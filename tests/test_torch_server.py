@@ -161,7 +161,7 @@ class TestDeviceAndImports:
             "    importlib.import_module(m.name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'flax', 'optax', 'podtpu', 'msgpack',"
-            " 'triton', 'PIL', 'lxml', 'cv2'))\n"
+            " 'triton', 'PIL', 'lxml', 'cv2', 'click', 'requests'))\n"
             "train = ['podtpu_torch.train.step', 'podtpu_torch.train.optim',"
             " 'podtpu_torch.data.presets', 'podtpu_torch.ops.matching',"
             " 'podtpu_torch.ops.image_ops', 'podtpu_torch.train.train',"
@@ -171,7 +171,9 @@ class TestDeviceAndImports:
             " 'podtpu_torch.data.annotation', 'podtpu_torch.data.project',"
             " 'podtpu_torch.data.image', 'podtpu_torch.data.label',"
             " 'podtpu_torch.core.logging', 'podtpu_torch.shared.utils',"
-            " 'podtpu_torch.infer.crop']\n"
+            " 'podtpu_torch.infer.crop', 'podtpu_torch.cli',"
+            " 'podtpu_torch.core.native', 'podtpu_torch.data.coco_import',"
+            " 'podtpu_torch.data.cvat.client', 'podtpu_torch.data.cvat.xml']\n"
             "assert all(m in sys.modules for m in train), train\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('podtpu_torch.')]), bad)\n")
@@ -179,7 +181,7 @@ class TestDeviceAndImports:
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
         count, bad = out.stdout.split(" ", 1)
-        assert int(count) >= 40 and bad.strip() == "[]"
+        assert int(count) >= 46 and bad.strip() == "[]"
 
     @pytest.mark.parametrize("alone", [False, True])
     def test_chip_smoke_fails_without_card_or_package(self, alone, tmp_path):
