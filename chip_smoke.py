@@ -74,13 +74,32 @@ Phases, one JSON line each:
    path, shapes uploaded or crops); one ``evaluate_model`` batch of the
    trained model has its K1 and K2 inputs captured.
 
+11. mask: Mask R-CNN ResNet-50-FPN (``ModelConfig(with_mask=True)``).
+   ``mask_reference``: a float32 model at 128^2 on the card against the
+   CPU, detections and masks.  ``mask_train``: the full-width model at the
+   ``TrainConfig`` defaults on seeded batches whose gt hold ellipse mask
+   targets at 1/8 of the canvas, 3 warm-up and 10 timed steps, then 3
+   with copy-paste; every loss finite, per step K1 once, K2 twice (7 and
+   14), K3 twice; ``mask_train_breakdown``: the step's parts and the mask
+   branch's (RoIAlign at 14, head, loss, backward).  ``mask_eval``: the
+   eval forward of a seeded random mask model (300 detections an image)
+   at batch 4, stage by stage.
+   ``mask_driver``: ``train(with_mask=True)`` on 24 in-memory images of
+   ellipse polygons for 2 epochs, ``evaluate_model`` (bbox and segm),
+   ``infer`` at 0.5 and at the median of the images' best scores
+   (polygons counted), and one ``DetectionServer`` batch.  One
+   mask training step's K2 and K3 calls at 14 and one eval forward's K2
+   call at 14 are captured.
+
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
 ``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
 the CLI's model, captured after the timed runs): as
 the path calls it and in score order, against the plain version, twice,
-with times; and K2 on the captured ``evaluate_model``, ``infer`` and CLI
-batches against its float32 plain version, twice, with times.  Then the
+with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
+batches and on the mask calls at 14 against its float32 plain version,
+twice, with times; and K3 on the mask step's gradient at 14 against its
+float32 plain backward.  Then the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure exits non-zero before that line.  Without a CUDA device,
 or without the ``podtpu_torch`` package beside it, the script fails.
@@ -89,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -362,7 +382,8 @@ def check_roi_align_main_path(torch, roi_align, captured):
     """K2 on the inputs the main paths gave it, called as the path calls
     it, against the float32 plain run on the same inputs (atol 2e-2, rtol
     1e-2, as ``check_roi_align``), twice for equal bits, with times and the
-    bound of this data."""
+    bound of this data.  Returns each call's record."""
+    recs = []
     for path, calls in captured:
         for k, (levels, boxes, strides, kw) in enumerate(calls):
             got = roi_align.batched_roi_align(levels, boxes, strides, **kw)
@@ -383,19 +404,22 @@ def check_roi_align_main_path(torch, roi_align, captured):
             nbytes, ops, touched = roi_bound(torch, roi_align, levels, boxes,
                                              strides, out, ratio)
             t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
-            emit({"phase": "kernels", "kernel": "roi_align_fwd",
-                  "case": f"{path}_call{k}_b{boxes.shape[0]}"
-                          f"_k{boxes.shape[1]}_{str(levels[0].dtype)[6:]}",
-                  "shape": list(got.shape), "max_abs_err": err,
-                  "within_tolerance": ok, "equal_bits_twice": same,
-                  "kernel_ms": ms, "plain_ms": plain_ms,
-                  "bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes,
-                  "ops": ops, "touched_cells": touched,
-                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            rec = {"phase": "kernels", "kernel": "roi_align_fwd",
+                   "case": f"{path}_call{k}_out{out}_b{boxes.shape[0]}"
+                           f"_k{boxes.shape[1]}_{str(levels[0].dtype)[6:]}",
+                   "shape": list(got.shape), "max_abs_err": err,
+                   "within_tolerance": ok, "equal_bits_twice": same,
+                   "kernel_ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes,
+                   "ops": ops, "touched_cells": touched,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            emit(rec)
             if not (ok and same):
                 raise AssertionError(
                     f"roi_align {path} call {k}: max abs error {err} "
                     f"(atol 2e-2, rtol 1e-2), equal bits twice {same}")
+            recs.append(rec)
+    return recs
 
 
 def roi_boxes(rng, b, k, canvas=1024.0):
@@ -647,6 +671,20 @@ def check_roi_align_cases(torch, roi_align, dev):
     return worst
 
 
+def roi_bwd_bound(torch, roi_align, levels, boxes, strides, grad, out=7,
+                  ratio=2):
+    """Bytes and operations RoIAlign's backward must spend on this data:
+    the upstream gradient and the boxes read once, every level-gradient
+    cell written once in the levels' dtype, 10 operations per inside sample
+    and channel; and the cells the inside samples touch."""
+    _, fwd_ops, touched = roi_bound(torch, roi_align, levels, boxes, strides,
+                                    out, ratio)
+    nbytes = (grad.numel() * grad.element_size() + boxes.numel() * 4
+              + sum(f.numel() for f in levels) * levels[0].element_size())
+    return (nbytes, fwd_ops // ROI_OPS_PER_SAMPLE * ROI_BWD_OPS_PER_SAMPLE,
+            touched)
+
+
 def check_roi_align_bwd(torch, roi_align, dev):
     """K3 at the training shapes, in bf16 (the training path) and float32,
     in both layouts of the upstream gradient, against the float32 plain
@@ -693,12 +731,10 @@ def check_roi_align_bwd(torch, roi_align, dev):
             g_cf, levels, boxes, strides, channels_first=True))
         plain_ms = time_ms(lambda: roi_align.batched_roi_align_backward_plain(
             g.float(), levels32, boxes, strides), reps=10)
-        _, fwd_ops, touched = roi_bound(torch, roi_align, levels, boxes,
-                                        strides)
+        nbytes, ops, touched = roi_bwd_bound(torch, roi_align, levels, boxes,
+                                             strides, g)
         size = levels[0].element_size()
         cells = sum(f.numel() for f in levels)
-        reads = g.numel() * g.element_size() + boxes.numel() * 4
-        nbytes = reads + cells * size
         per_roi = 2 * 7 * 2 * 8                # sample entries, bytes
         groups = -(-c * size // 512)           # 32 16-byte vectors a block
         units = partial_tiles = 0
@@ -713,7 +749,6 @@ def check_roi_align_bwd(torch, roi_align, dev):
                  + b * units * groups * k * 8
                  + hits * (49 * c * size + per_roi * groups)
                  + 2 * partial + cells * size)
-        ops = fwd_ops // ROI_OPS_PER_SAMPLE * ROI_BWD_OPS_PER_SAMPLE
         t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         rec = {"phase": "kernels", "kernel": "roi_align_bwd",
@@ -1011,7 +1046,7 @@ def move(x, dev):
     """A tensor, or a nest of NamedTuples of tensors, moved to ``dev``."""
     if isinstance(x, tuple):
         return type(x)(*(move(v, dev) for v in x))
-    return x.to(dev)
+    return None if x is None else x.to(dev)
 
 
 # The train step with K3 against the same step with K3's plain version, on
@@ -1348,7 +1383,8 @@ def driver_hooks(torch, driver, rec):
         last = rec["epochs"][-1] if rec["epochs"] else {}
         last.update(eval_start=t0, eval_end=time.perf_counter(),
                     eval_batches=len(loader),
-                    eval_images=len(loader.indices), stats=list(stats))
+                    eval_images=len(loader.indices), stats=list(stats),
+                    segm_stats=getattr(ev, "segm_stats", None))
         return ev, stats
 
     def make_scheduler(*args, **kwargs):
@@ -1955,6 +1991,571 @@ def cli_phase(torch, card, dev, native_built, size=1024, n=16):
                            for k in lines["train"]["launches"]}},
             (nms_calls, roi_calls))
 
+
+# -- phase 11: Mask R-CNN -----------------------------------------------------
+
+def ellipse_masks(boxes, valid, size, stride=8):
+    """Float32 ``[B, G, H/stride, W/stride]`` planes: a filled ellipse in
+    each valid box, the dataset's mask targets of an ellipse polygon."""
+    hm, wm = size[0] // stride, size[1] // stride
+    yy, xx = np.mgrid[0:hm, 0:wm] + 0.5
+    out = np.zeros(boxes.shape[:2] + (hm, wm), np.float32)
+    for i, j in zip(*np.nonzero(valid)):
+        x1, y1, x2, y2 = boxes[i, j] / stride
+        rx, ry = max((x2 - x1) / 2, 0.5), max((y2 - y1) / 2, 0.5)
+        out[i, j] = (((xx - (x1 + x2) / 2) / rx) ** 2
+                     + ((yy - (y1 + y2) / 2) / ry) ** 2) <= 1
+    return out
+
+
+def synthetic_mask_batch(rng, b, size, max_gt, stride=8):
+    """``synthetic_batch`` with each gt's ellipse as its mask target."""
+    batch = synthetic_batch(rng, b, size, max_gt)
+    batch["masks"] = ellipse_masks(batch["boxes"], batch["valid"], size,
+                                   stride)
+    return batch
+
+
+def check_mask_reference(torch, dev):
+    """A small float32 Mask R-CNN on the card against the same weights on
+    the CPU (plain versions), TF32 off: valid slots and labels equal, boxes
+    within 1e-3, scores within 1e-4 and, on valid slots, masks within 1e-3
+    (six convolutions and a sigmoid after the pooling, summed in another
+    order)."""
+    from podtpu_torch.core.config import ModelConfig
+    from podtpu_torch.models.detector import init_parameters, make_detector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(image_size=(128, 128), rpn_pre_nms_topk_test=128,
+                      rpn_post_nms_topk_test=64, detections_per_image=16,
+                      compute_dtype="float32", num_classes=4, with_mask=True)
+    try:
+        for seed in range(SEED, SEED + 5):
+            cpu = make_detector(cfg)
+            init_parameters(cpu, torch.Generator().manual_seed(seed))
+            cpu = cpu.to(memory_format=torch.channels_last).eval()
+            gpu = copy.deepcopy(cpu).to(dev)
+            img = np.random.default_rng(seed).integers(
+                0, 256, (2, 128, 128, 3)).astype(np.uint8)
+            with torch.inference_mode():
+                want, want_m = cpu(torch.from_numpy(img))
+                got, got_m = gpu(torch.from_numpy(img).to(dev))
+            s = want.scores[want.valid].sort().values
+            if s.numel() > 1 and float(s.diff().min()) < 1e-5:
+                continue  # a near tie would make slot order fragile
+            v = want.valid
+            rec = {"phase": "mask_reference", "seed": seed,
+                   "detections": int(v.sum()),
+                   "same_valid": torch.equal(got.valid.cpu(), v),
+                   "same_labels": torch.equal(got.labels.cpu(), want.labels),
+                   "box_max_abs_err": float(
+                       (got.boxes.cpu() - want.boxes).abs().max()),
+                   "score_max_abs_err": float(
+                       (got.scores.cpu() - want.scores).abs().max()),
+                   "mask_shape": list(got_m.shape),
+                   "mask_max_abs_err": float(
+                       (got_m.cpu()[v] - want_m[v]).abs().max())}
+            emit(rec)
+            if not (rec["same_valid"] and rec["same_labels"]
+                    and rec["box_max_abs_err"] <= 1e-3
+                    and rec["score_max_abs_err"] <= 1e-4
+                    and rec["mask_max_abs_err"] <= 1e-3
+                    and rec["detections"] > 0):
+                raise AssertionError("GPU masks or detections disagree with "
+                                     "the CPU reference")
+            return
+        raise AssertionError("no seed without near-tied scores")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def capture_roi_align_bwd(run, output_size, limit=1):
+    """The inputs of the first ``limit`` K3 calls at ``output_size`` that
+    ``run()`` makes (the backward of the RoIAlign autograd function), as
+    ``(grad_out, level shapes, dtype, boxes, strides, output_size, ratio,
+    channels_first)``, cloned."""
+    from podtpu_torch.ops import roi_align
+
+    calls = []
+    launch = roi_align._backward_kernel
+
+    def recording(grad_out, shapes, dtype, boxes, level, strides, out,
+                  ratio, channels_first):
+        if out == output_size and len(calls) < limit:
+            calls.append((grad_out.detach().clone(), shapes, dtype,
+                          boxes.clone(), strides, out, ratio,
+                          channels_first))
+        return launch(grad_out, shapes, dtype, boxes, level, strides, out,
+                      ratio, channels_first)
+
+    roi_align._backward_kernel = recording
+    try:
+        run()
+    finally:
+        roi_align._backward_kernel = launch
+    return calls
+
+
+def check_roi_align_bwd_main_path(torch, roi_align, captured):
+    """K3 on the upstream gradients the main paths gave it, as the path
+    calls it, against the float32 plain backward on the same inputs (atol
+    2e-2, rtol 1e-2 in bf16, as ``check_roi_align_bwd``), twice for equal
+    bits, with times and the bound of this data.  Returns each call's
+    record."""
+    recs = []
+    for path, calls in captured:
+        for k, (g, shapes, dtype, boxes, strides, out, ratio,
+                cf) in enumerate(calls):
+            levels = [torch.empty(s, dtype=dtype, device=boxes.device)
+                      for s in shapes]
+            levels32 = [torch.empty(s, dtype=torch.float32,
+                                    device=boxes.device) for s in shapes]
+
+            def kernel():
+                return roi_align.batched_roi_align_backward(
+                    g, levels, boxes, strides, out, ratio, channels_first=cf)
+
+            got, again = kernel(), kernel()
+            want = roi_align.batched_roi_align_backward_plain(
+                g.float(), levels32, boxes, strides, out, ratio,
+                channels_first=cf)
+            torch.cuda.synchronize()
+            err = max(float((x.float() - w).abs().max())
+                      for x, w in zip(got, want))
+            ok = all(x.dtype == dtype and torch.allclose(
+                x.float(), w, atol=2e-2, rtol=1e-2) for x, w in zip(got, want))
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del got, again, want
+            ms = time_ms(kernel)
+            plain_ms = time_ms(
+                lambda: roi_align.batched_roi_align_backward_plain(
+                    g.float(), levels32, boxes, strides, out, ratio,
+                    channels_first=cf), reps=10)
+            nbytes, ops, _ = roi_bwd_bound(torch, roi_align, levels, boxes,
+                                           strides, g, out, ratio)
+            t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+            rec = {"phase": "kernels", "kernel": "roi_align_bwd",
+                   "case": f"{path}_call{k}_out{out}_b{boxes.shape[0]}"
+                           f"_k{boxes.shape[1]}_{str(dtype)[6:]}",
+                   "grad_shape": list(g.shape), "channels_first": cf,
+                   "max_abs_err": err, "within_tolerance": ok,
+                   "equal_bits_twice": same, "kernel_ms": ms,
+                   "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes,
+                   "ops": ops,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            emit(rec)
+            if not (ok and same):
+                raise AssertionError(
+                    f"roi_align_bwd {path} call {k}: max abs error {err} "
+                    f"(atol 2e-2, rtol 1e-2), equal bits twice {same}")
+            recs.append(rec)
+    return recs
+
+
+def mask_branch_ms(torch, model, images, batch, cfg):
+    """CUDA-event milliseconds (median of 10) of the mask branch of a train
+    step, each part fed the previous part's outputs: RoIAlign at the mask
+    pool size over the sampled RoIs (K2), the mask head, the loss (target
+    crop and BCE) and the branch's backward (the head's and K3's)."""
+    from podtpu_torch.models import rpn as rpn_lib
+    from podtpu_torch.models import roi_heads as rh
+    from podtpu_torch.models.detector import draw_model
+
+    mcfg = cfg.model
+    gen = torch.Generator(device=images.device).manual_seed(SEED)
+    with torch.no_grad():
+        pyramid = model.features(images)
+        logits, deltas = model.rpn.head(pyramid)
+        props = rpn_lib.select_proposals(logits, deltas, model.rpn.anchors(),
+                                         mcfg, train=True)
+        draws = draw_model(gen, mcfg, images.shape[0],
+                           batch["boxes"].shape[1])
+        sampled = rh.sample_rois(props.boxes, props.valid, batch["boxes"],
+                                 batch["labels"], batch["valid"], mcfg,
+                                 draws.roi_pos, draws.roi_neg)
+    pyramid = [f.detach().requires_grad_() for f in pyramid]
+
+    def pool():
+        return rh.pool_rois_batched(pyramid, sampled.boxes, mcfg,
+                                    pool_size=mcfg.mask_pool_size,
+                                    channels_last=True)
+
+    def head(pooled):
+        b, k = pooled.shape[:2]
+        out = model.roi_heads.mask_logits(pooled.reshape(b * k,
+                                                         *pooled.shape[2:]))
+        return out.reshape(b, k, *out.shape[1:])
+
+    with torch.no_grad():
+        pooled = pool()
+        mask_logits = head(pooled)
+
+    def branch():
+        loss = rh.mask_loss(head(pool()), sampled, batch["masks"], mcfg)
+        loss.backward()
+
+    with torch.no_grad():
+        parts = {"mask_roi_align": time_ms(pool, reps=10),
+                 "mask_head": time_ms(lambda: head(pooled), reps=10),
+                 "mask_loss": time_ms(lambda: rh.mask_loss(
+                     mask_logits, sampled, batch["masks"], mcfg), reps=10)}
+    whole = time_ms(branch, reps=10)
+    parts["mask_backward"] = whole - sum(parts.values())
+    parts["mask_branch_forward_backward"] = whole
+    model.zero_grad(set_to_none=True)
+    return parts
+
+
+def mask_train_slice(torch, card, dev, captured, config=None, size=None,
+                     warmup=3, timed=10, copy_paste_steps=3):
+    """Mask R-CNN trained at the ``TrainConfig`` defaults (batch 2, SGD,
+    miso) on seeded synthetic batches whose 1-30 gt boxes each hold an
+    ellipse mask target at 1/8 of the canvas: ``warmup`` and ``timed``
+    steps, then ``copy_paste_steps`` with ``DataConfig.copy_paste``.  Every
+    loss finite, ``loss_mask`` among them; per step K1 once, K2 twice (box
+    head at 7, mask head at 14) and K3 twice.  Then the step's parts
+    (``mark`` hook), the mask branch's parts and a profiler window.  The
+    inputs of one step's K2 and K3 calls at 14 go to ``captured``."""
+    from podtpu_torch.core.config import Config, ModelConfig
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.ops import _build
+    from podtpu_torch.train.optim import make_optimizer
+    from podtpu_torch.train.step import images_to_float, make_train_step
+
+    cfg = config or Config(model=ModelConfig(num_classes=4, with_mask=True))
+    mcfg = cfg.model
+    model = make_detector(mcfg)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model = model.to(memory_format=torch.channels_last)
+    optimizer = make_optimizer(cfg.train, model)
+    step = make_train_step(model, optimizer, cfg, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    size = size or mcfg.image_size
+    batches = [synthetic_mask_batch(rng, cfg.train.batch_size, size,
+                                    mcfg.max_gt_boxes, mcfg.mask_gt_stride)
+               for _ in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lr = cfg.train.lr
+    for i in range(warmup):
+        step(batches[i % 4], lr, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = ("nms", "roi_align_fwd", "roi_align_bwd")
+    per_step = {"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2}
+    _build.reset_launches()
+    step_s, losses = [], []
+    t_all = time.perf_counter()
+    for i in range(timed):
+        before = {k: _build.launches[k] for k in kernels}
+        t0 = time.perf_counter()
+        m = step(batches[i % 4], lr, generator=gen)
+        vals = {k: float(v) for k, v in m.items()}
+        step_s.append(time.perf_counter() - t0)
+        losses.append(vals)
+        got = {k: _build.launches[k] - before[k] for k in kernels}
+        if not all(np.isfinite(v) for v in vals.values()) \
+                or "loss_mask" not in vals:
+            raise AssertionError(f"mask step {i}: losses {vals}")
+        if got != per_step:
+            raise AssertionError(f"mask step {i}: launches {got}, expected "
+                                 f"{per_step}")
+    wall = time.perf_counter() - t_all
+    launches = {k: _build.launches[k] for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cp_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, copy_paste=True))
+    cp_step = make_train_step(model, optimizer, cp_cfg, device=dev)
+    cp_losses = []
+    for i in range(copy_paste_steps):
+        m = cp_step(batches[i % 4], lr, generator=gen)
+        cp_losses.append({k: float(v) for k, v in m.items()})
+        if not all(np.isfinite(v) for v in cp_losses[-1].values()):
+            raise AssertionError(f"copy-paste step {i}: {cp_losses[-1]}")
+    lat = sorted(step_s)
+    rec = {"phase": "mask_train", "model": "mask_rcnn_resnet50_fpn",
+           "image_size": list(mcfg.image_size),
+           "compute_dtype": mcfg.compute_dtype,
+           "batch_size": cfg.train.batch_size,
+           "mask_pool_size": mcfg.mask_pool_size,
+           "mask_resolution": mcfg.mask_resolution,
+           "mask_targets": list(batches[0]["masks"].shape[2:]),
+           "gt_boxes": [int(b["valid"].sum()) for b in batches],
+           "warmup_steps": warmup, "steps": timed, "wall_s": wall,
+           "images_per_s": timed * cfg.train.batch_size / wall,
+           "step_ms_p50": statistics.median(lat) * 1e3,
+           "step_ms_max": lat[-1] * 1e3,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "copy_paste_steps": copy_paste_steps,
+           "copy_paste_losses": cp_losses,
+           "peak_memory_gib": peak, "launches": launches,
+           "launches_per_step": {k: v / timed for k, v in launches.items()},
+           "card": card}
+    emit(rec)
+
+    dev_batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 batches[0].items()}
+    parts = train_breakdown(torch, model, optimizer, cfg, batches[0], gen)
+    parts.update(mask_branch_ms(torch, model,
+                                images_to_float(dev_batch["image"]),
+                                dev_batch, cfg))
+    prof = device_profile(
+        torch, lambda: step(batches[0], lr, generator=gen), reps=3,
+        unit="step")
+    emit({"phase": "mask_train_breakdown",
+          "batch_size": cfg.train.batch_size, "parts_ms": parts,
+          "profile": prof, "card": card})
+    k3_calls = []
+    k2_calls = capture_roi_align(lambda: k3_calls.extend(
+        capture_roi_align_bwd(lambda: step(batches[0], lr, generator=gen),
+                              mcfg.mask_pool_size)))
+    k2_calls = [c for c in k2_calls
+                if c[3].get("output_size") == mcfg.mask_pool_size]
+    if len(k2_calls) != 1 or len(k3_calls) != 1:
+        raise AssertionError(f"one mask step made {len(k2_calls)} K2 and "
+                             f"{len(k3_calls)} K3 calls at "
+                             f"{mcfg.mask_pool_size}, expected 1 and 1")
+    captured["k2"].append(("mask_train", k2_calls))
+    captured["k3"].append(("mask_train", k3_calls))
+    return {"launches": launches}
+
+
+def mask_eval_slice(torch, card, dev, captured, config=None, b=4):
+    """The eval forward of a mask model with seeded random weights (as the
+    serving slice's: every one of the ``detections_per_image`` slots holds
+    a detection) at batch ``b``: each stage timed with CUDA events (median
+    of 10), the mask stages among them, a profiler window, the launches of
+    one forward, and the inputs of its K2 call at the mask pool size."""
+    from podtpu_torch.core.config import ModelConfig
+    from podtpu_torch.models import roi_heads as rh
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.ops import _build
+
+    cfg = config or ModelConfig(num_classes=4, with_mask=True)
+    model = make_detector(cfg)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    rng = np.random.default_rng(SEED + 12)
+    images = [rng.integers(0, 256, (*cfg.image_size, 3), dtype=np.uint8)
+              for _ in range(b)]
+    x = torch.from_numpy(np.stack(images)).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+
+    det, masks = forward()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    det, masks = forward()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    stages = stage_breakdown(torch, model, images)
+    with torch.inference_mode():
+        pyramid = model.features(x)
+        pooled = rh.pool_rois_batched(pyramid, det.boxes, cfg,
+                                      pool_size=cfg.mask_pool_size,
+                                      channels_last=True)
+        flat = pooled.reshape(-1, *pooled.shape[2:])
+        stages["mask_roi_align"] = time_ms(lambda: rh.pool_rois_batched(
+            pyramid, det.boxes, cfg, pool_size=cfg.mask_pool_size,
+            channels_last=True), reps=10)
+        stages["mask_head"] = time_ms(
+            lambda: model.roi_heads.mask_logits(flat), reps=10)
+    prof = device_profile(torch, forward)
+    calls = [c for c in capture_roi_align(forward)
+             if c[3].get("output_size") == cfg.mask_pool_size]
+    valid = det.valid
+    rec = {"phase": "mask_eval", "model": "mask_rcnn_resnet50_fpn",
+           "batch_size": b, "image_size": list(cfg.image_size),
+           "detections": int(valid.sum()), "mask_shape": list(masks.shape),
+           "masks_finite": bool(torch.isfinite(masks).all()),
+           "mask_pixels_over_half": float((masks[valid] > 0.5).float()
+                                          .mean()) if valid.any() else None,
+           "stages_ms": stages, "launches": launches, "profile": prof,
+           "card": card}
+    emit(rec)
+    if not rec["masks_finite"] or tuple(masks.shape) != (
+            b, cfg.detections_per_image, cfg.mask_resolution,
+            cfg.mask_resolution):
+        raise AssertionError(f"mask eval: masks {tuple(masks.shape)}, "
+                             f"finite {rec['masks_finite']}")
+    if launches.get("roi_align_fwd", 0) != 2 or len(calls) != 1:
+        raise AssertionError(f"mask eval: launches {launches}, "
+                             f"{len(calls)} K2 calls at the mask size")
+    captured["k2"].append(("mask_eval", calls))
+    return launches
+
+
+def polygon_images(rng, n, size, with_gt=True, polygons=True):
+    """``n`` seeded canvases, path -> uint8 image, and their metadata: dark
+    noise with 1-30 filled ellipses of 16-256 px, a brightness per label;
+    each annotated (``with_gt``) by its ellipse as a 24-point polygon, or
+    by its box when ``polygons`` is False."""
+    from podtpu_torch.data import ImageMetadata, RectangleAnnotation
+    from podtpu_torch.data.annotation import PolygonAnnotation
+
+    batch = synthetic_batch(rng, n, size, 30, classes=len(DRIVER_LABELS))
+    fill = ellipse_masks(batch["boxes"], batch["valid"], size, stride=1)
+    images, metas = {}, []
+    a = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+    for i in range(n):
+        img = (batch["image"][i] // 3).copy()
+        meta = ImageMetadata(f"mask_{'gt' if with_gt else 'infer'}_{i:03d}"
+                             ".png", "/in-memory", dataset_id=1, frame_id=i)
+        valid = batch["valid"][i]
+        for j in np.flatnonzero(valid):
+            x1, y1, x2, y2 = (float(v) for v in batch["boxes"][i, j])
+            lab = int(batch["labels"][i, j])
+            img[fill[i, j] > 0] = 120 + 40 * lab
+            if not with_gt:
+                continue
+            if polygons:
+                cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+                meta.add_annotation(PolygonAnnotation(
+                    list(cx + (x2 - x1) / 2 * np.cos(a)),
+                    list(cy + (y2 - y1) / 2 * np.sin(a)),
+                    DRIVER_LABELS[lab - 1]))
+            else:
+                meta.add_annotation(RectangleAnnotation(
+                    x1, y1, x2 - x1, y2 - y1, DRIVER_LABELS[lab - 1]))
+        images[meta.full_path] = img
+        metas.append(meta)
+    return images, metas
+
+
+def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
+                      n_images=24, n_infer=8):
+    """``train(with_mask=True)`` at the ``Config()`` defaults on a seeded
+    in-memory project of ellipse polygons (rectangles where Pillow, which
+    rasterizes them, does not import) for 2 epochs; ``evaluate_model`` on
+    its 4 test images with bbox and segm stats; ``infer`` on ``n_infer``
+    unlabelled images at threshold 0.5, then at the median of the images'
+    best scores, which keeps a detection in at least half of them (the
+    host traces each kept mask: about 0.2 s a detection at 1024^2); and
+    one batch of the ``DetectionServer`` at that score, of the four
+    images with the best scores.  Returns the launches by path."""
+    from podtpu_torch.data import Project, imageio
+    from podtpu_torch.data.annotation import PolygonAnnotation
+    from podtpu_torch.data.dataset import train_test_split
+    from podtpu_torch.infer import inference
+    from podtpu_torch.infer.server import DetectionServer
+    from podtpu_torch.train import train as driver
+
+    pillow = importlib.util.find_spec("PIL") is not None
+    images, metas = polygon_images(np.random.default_rng(SEED + 13),
+                                   n_images, size, polygons=pillow)
+    unlabelled, infer_metas = polygon_images(
+        np.random.default_rng(SEED + 14), n_infer, size, with_gt=False)
+    images.update(unlabelled)
+    project, infer_project = Project(), Project()
+    for m in metas:
+        project.add_image(m)
+    for m in infer_metas:
+        infer_project.add_image(m)
+    tmp = tempfile.mkdtemp(prefix="podtpu_mask_")
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, launches, rec, seconds = driven(
+            torch, driver, driver.train, project, output_dir=tmp,
+            name="mask", batch_size=2, seed=0, config=config, device=dev,
+            max_epochs=2, with_mask=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, test_idx = train_test_split(len(metas), 0.2, 1)
+        test_project = Project()
+        for i in test_idx:
+            test_project.add_image(metas[int(i)])
+        eval_dir = os.path.join(tmp, "eval")
+        stats, evaluated, _, eval_s = driven(
+            torch, driver, driver.evaluate_model, test_project, model_dir,
+            batch_size=2, output_dir=eval_dir, device=dev)
+        with open(os.path.join(eval_dir, "results_segm.txt")) as fp:
+            segm = [float(ln.rsplit("=", 1)[1]) for ln in fp]
+
+        def infer(threshold):
+            return driven(torch, driver, inference.infer, infer_project,
+                          model_dir, threshold=threshold, batch_size=4,
+                          device=dev)
+
+        def kinds(result):
+            shapes = [b for im in result.image_dict.values()
+                      for b in im.boxes]
+            return (sum(isinstance(b, PolygonAnnotation) for b in shapes),
+                    len(shapes))
+
+        result, infer_launches, _, infer_s = infer(0.5)
+        with contextlib.redirect_stdout(sys.stderr):
+            forward = inference.load_inference_model(model_dir, dev)[0]
+            x = np.stack([images[m.full_path] for m in infer_metas])
+            det, _ = forward(x)
+            best = torch.where(det.valid, det.scores, torch.zeros_like(
+                det.scores)).amax(1).cpu()
+            order = [infer_metas[int(i)] for i in best.argsort(
+                descending=True)]
+            best = best[best > 0]
+            threshold = float(best.median()) - 1e-6 if len(best) else 0.0
+        best_result, _, _, best_s = infer(threshold)
+        server = DetectionServer(model_dir, batch_size=4, device=dev)
+        try:
+            served = [server.detect_array(images[m.full_path], threshold)
+                      for m in order[:4]]
+        finally:
+            server.close()
+    finally:
+        imageio.read_rgb = read_rgb
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sum(e["steps"] for e in rec["epochs"])
+    eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
+    polygons, shapes = kinds(result)
+    best_polygons, best_shapes = kinds(best_result)
+    served_polygons = sum("polygon" in d for r in served
+                          for d in r["detections"])
+    line = {"phase": "mask_driver", "model": "mask_rcnn_resnet50_fpn",
+            "image_size": list(size), "images": n_images,
+            "gt_shapes": "ellipse polygons (24 points)" if pillow else
+            "rectangles (Pillow, which rasterizes polygons, does not "
+            "import)", "batch_size": 2,
+            "epochs": epoch_lines(rec, 2), "steps": steps,
+            "train_call_s": seconds,
+            "epoch_losses": [e["loss"] for e in rec["epochs"]],
+            "eval_segm_stats": [e["segm_stats"] for e in rec["epochs"]],
+            "evaluate_model_s": eval_s, "evaluate_model_bbox": stats,
+            "evaluate_model_segm": segm,
+            "infer_threshold": 0.5, "infer_s": infer_s,
+            "infer_polygons": polygons, "infer_annotations": shapes,
+            "best_threshold": threshold, "best_infer_s": best_s,
+            "best_polygons": best_polygons, "best_annotations": best_shapes,
+            "served_detections": sum(len(r["detections"]) for r in served),
+            "served_polygons": served_polygons,
+            "launches": {"train": launches, "evaluate_model": evaluated,
+                         "infer": infer_launches},
+            "peak_memory_gib": peak, "card": card}
+    emit(line)
+    bad = []
+    if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
+        bad.append("a train loss is not finite")
+    if len(segm) != 12 or not all(-1 <= v <= 1 for v in segm + stats):
+        bad.append(f"stats {stats}, segm {segm}")
+    if any(e["segm_stats"] is None for e in rec["epochs"]):
+        bad.append("an epoch's eval ran no segm evaluation")
+    if launches["roi_align_bwd"] != 2 * steps or launches["nms"] < (
+            steps + eval_batches) or launches["roi_align_fwd"] < 2 * (
+            steps + eval_batches):
+        bad.append(f"train launches {launches}: expected K3 = 2 x {steps} "
+                   f"steps, K1 >= {steps + eval_batches}, K2 >= twice that")
+    if not best_polygons or not served_polygons:
+        bad.append(f"{best_polygons} polygons from infer and "
+                   f"{served_polygons} from the server at the median best "
+                   "score")
+    if bad:
+        raise AssertionError(f"mask driver: {bad}")
+    return {"mask_driver": launches, "mask_evaluate_model": evaluated,
+            "mask_infer": infer_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1989,6 +2590,7 @@ def main() -> int:
     bwd_rec = check_roi_align_bwd(torch, roi_align, "cuda")
     check_roi_align_cases(torch, roi_align, "cuda")
     check_reference(torch, "cuda")
+    check_mask_reference(torch, "cuda")
     captured = []
     serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4),
                         captured)
@@ -2002,12 +2604,19 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cli, (cli_nms, cli_roi) = cli_phase(torch, card, "cuda", native_built)
+    mask_captured = {"k2": [], "k3": []}
+    mask_train = mask_train_slice(torch, card, "cuda", mask_captured)
+    mask_eval = mask_eval_slice(torch, card, "cuda", mask_captured)
+    mask_driver = mask_driver_phase(torch, card, "cuda")
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)]
     check_nms_main_path(torch, nms, captured)
     check_roi_align_main_path(torch, roi_align, [
         ("evaluate_model", eval_roi), ("infer", infer_roi),
         ("cli_evaluate_model", cli_roi)])
+    k2_14 = check_roi_align_main_path(torch, roi_align, mask_captured["k2"])
+    k3_14 = check_roi_align_bwd_main_path(torch, roi_align,
+                                          mask_captured["k3"])
 
     def launches(name):
         by_path = {"serve": serve.get(name, 0),
@@ -2015,9 +2624,17 @@ def main() -> int:
                    "driver": driver["driver"][name],
                    "evaluate_model": driver["evaluate_model"][name],
                    "infer": infer[name], "cli_train": cli["cli_train"][name],
-                   "cli_infer": cli["cli_infer"][name]}
+                   "cli_infer": cli["cli_infer"][name],
+                   "mask_train": mask_train["launches"].get(name, 0),
+                   "mask_eval": mask_eval.get(name, 0),
+                   **{k: v[name] for k, v in mask_driver.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
+
+    def at(rec, case=None):
+        return {"case": case or rec["case"], "ms": rec["kernel_ms"]
+                if "kernel_ms" in rec else rec["ms"],
+                "bound_ms": rec["bound_ms"], "max_abs_err": rec["max_abs_err"]}
 
     kernels = [
         dict(name="nms", route="cuda", source="podtpu_torch/csrc/nms.cu",
@@ -2025,21 +2642,26 @@ def main() -> int:
              **launches("nms"), max_abs_err=nms_rec["max_abs_err"],
              ms=nms_rec["ms"], plain_ms=nms_rec["plain_ms"],
              bound_ms=nms_rec["bound_ms"], bound_by=nms_rec["bound_by"],
-             library_ms=None),
+             library_ms=None, by_output_size=None),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",
              **launches("roi_align_fwd"),
              max_abs_err=roi_rec["max_abs_err"], ms=roi_rec["ms"],
              plain_ms=roi_rec["plain_ms"], bound_ms=roi_rec["bound_ms"],
-             bound_by=roi_rec["bound_by"], library_ms=None),
+             bound_by=roi_rec["bound_by"], library_ms=None,
+             by_output_size={
+                 "7": at(roi_rec, "serving_b4_k1000_c256_bf16"),
+                 "14": {**at(k2_14[0]), "mask_eval": at(k2_14[1])}}),
         dict(name="roi_align_bwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:226",
              **launches("roi_align_bwd"),
              max_abs_err=bwd_rec["max_abs_err"], ms=bwd_rec["ms"],
              plain_ms=bwd_rec["plain_ms"], bound_ms=bwd_rec["bound_ms"],
-             bound_by=bwd_rec["bound_by"], library_ms=None),
+             bound_by=bwd_rec["bound_by"], library_ms=None,
+             by_output_size={"7": at(bwd_rec, "train_b2_k512_c256_bf16"),
+                             "14": at(k3_14[0])}),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

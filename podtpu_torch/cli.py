@@ -157,8 +157,8 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("--resume", flag=True,
           help="Resume from the last epoch checkpoint if present")
     c.opt("--with-mask", flag=True,
-          help="Train a Mask R-CNN head on polygon annotations (ROADMAP.md "
-               "item 10)")
+          help="Train a Mask R-CNN head on polygon annotations (rectangles "
+               "train as filled boxes)")
     c.opt("--with-keypoints", flag=True,
           help="Train a Keypoint R-CNN head (ROADMAP.md item 11)")
     c.opt("--num-keypoints", type=int, default=17,

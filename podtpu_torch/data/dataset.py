@@ -13,9 +13,10 @@ the batch falls back to the per-sample path: decode through
 :func:`podtpu_torch.data.imageio.read_rgb` (looked up on the module at each
 call, so a caller can replace the decoder) and :func:`fit_resize`.  OpenCV
 (or Pillow where OpenCV is missing) is imported only when an image really
-needs resizing, so a canvas-sized image needs no image library.  Box
-targets only: mask and keypoint targets wait for ROADMAP.md items 10 and
-11.
+needs resizing, so a canvas-sized image needs no image library.  With
+``with_masks`` each gt also gets a float32 mask target at 1/``mask_stride``
+of the canvas, rasterized from its polygon (Pillow) or filled over its
+rectangle.  Keypoint targets wait for ROADMAP.md item 11.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ class Sample:
     scale: float             # canvas px per original px
     original_size: Tuple[int, int]  # (h, w)
     index: int
+    masks: Optional[np.ndarray] = None  # [G, H/ms, W/ms] float32 bitmaps
     # False when the image failed to decode: the sample is a zero canvas
     # with no gt, and the loader folds it into batch_valid so training and
     # evaluation ignore it.
@@ -82,14 +84,17 @@ class DetectionDataset:
         cache: object = "auto",
         cache_budget_bytes: Optional[int] = None,
     ):
-        if with_masks or with_keypoints:
+        if with_keypoints:
             raise NotImplementedError(
-                "podtpu_torch does not port mask and keypoint targets yet "
-                "(ROADMAP.md, items 10 and 11: Mask and Keypoint R-CNN)")
+                "podtpu_torch does not port keypoint targets yet "
+                "(ROADMAP.md, item 11: Keypoint R-CNN)")
         self.project = project
         self.images = list(project.image_dict.values())
         self.image_size = tuple(image_size)
         self.max_gt = max_gt
+        # Mask R-CNN targets: per-gt planes at 1/mask_stride of the canvas.
+        self.with_masks = with_masks
+        self.mask_stride = mask_stride
         # Label -> 1-based index (background = 0).
         names = list(label_names) if label_names is not None \
             else list(project.label_names)
@@ -102,7 +107,11 @@ class DetectionDataset:
         budget = cache_budget_bytes if cache_budget_bytes is not None else \
             int(os.environ.get("PODTPU_CACHE_BYTES", 2 << 30))
         ch, cw = self.image_size
-        fits = len(self.images) * (ch * cw * 3 + max_gt * 16) <= budget
+        per_sample = ch * cw * 3 + max_gt * 16
+        if with_masks:
+            per_sample += 4 * max_gt * (ch // mask_stride) * (
+                cw // mask_stride)
+        fits = len(self.images) * per_sample <= budget
         enabled = (cache is True) or (cache == "auto" and fits)
         self._cache: Optional[Dict[int, Sample]] = {} if enabled else None
         self._warned: set = set()
@@ -117,12 +126,15 @@ class DetectionDataset:
                   "skipping image")
         ch, cw = self.image_size
         g = self.max_gt
+        mh, mw = ch // self.mask_stride, cw // self.mask_stride
         return Sample(
             image=np.zeros((ch, cw, 3), np.uint8),
             boxes=np.zeros((g, 4), np.float32),
             labels=np.zeros((g,), np.int32),
             valid=np.zeros((g,), bool), scale=1.0, original_size=(ch, cw),
-            index=i, ok=False)
+            index=i, ok=False,
+            masks=np.zeros((g, mh, mw), np.float32) if self.with_masks
+            else None)
 
     def load(self, i: int) -> Sample:
         if self._cache is not None and i in self._cache:
@@ -158,9 +170,22 @@ class DetectionDataset:
             valid[j] = True
         np.clip(boxes[:, 0::2], 0, cw, out=boxes[:, 0::2])
         np.clip(boxes[:, 1::2], 0, ch, out=boxes[:, 1::2])
+        masks = None
+        if self.with_masks:
+            mh, mw = ch // self.mask_stride, cw // self.mask_stride
+            masks = np.zeros((g, mh, mw), np.float32)
+            mscale = scale / self.mask_stride
+            for j, box in enumerate(kept):
+                if hasattr(box, "rasterize"):
+                    masks[j] = box.rasterize(mh, mw, scale=mscale)
+                else:  # rectangle: filled box
+                    x1, y1, x2, y2 = np.asarray(box.coords) * mscale
+                    masks[j,
+                          int(max(y1, 0)): int(min(np.ceil(y2), mh)),
+                          int(max(x1, 0)): int(min(np.ceil(x2), mw))] = 1.0
         return Sample(image=canvas, boxes=boxes, labels=labels, valid=valid,
                       scale=scale, original_size=tuple(original_size),
-                      index=i)
+                      index=i, masks=masks)
 
     def load_batch(self, indices) -> List[Sample]:
         """The samples of ``indices``: cached ones from the cache, the rest
@@ -203,8 +228,9 @@ def train_test_split(
 
 
 def collate(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
-    """Stack samples into one fixed-shape batch dict."""
-    return {
+    """Stack samples into one fixed-shape batch dict (with ``masks`` when
+    the samples carry mask targets)."""
+    batch = {
         "image": np.stack([s.image for s in samples]),
         "boxes": np.stack([s.boxes for s in samples]),
         "labels": np.stack([s.labels for s in samples]),
@@ -214,3 +240,6 @@ def collate(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
                                     np.int32),
         "index": np.asarray([s.index for s in samples], np.int32),
     }
+    if samples[0].masks is not None:
+        batch["masks"] = np.stack([s.masks for s in samples])
+    return batch

@@ -9,14 +9,16 @@ reference's contract (`miso/object_detection/inference.py:16-131`):
 * ``infer``: optional ``_NV`` label suffix, the labels added to the
   caller's project, only images with no annotations are run, and each
   detection with ``score > threshold`` becomes a ``RectangleAnnotation``
-  labelled ``model_labels[label - 1]`` in original-image pixels; returns a
-  new project holding only the detections;
+  labelled ``model_labels[label - 1]`` in original-image pixels (for a mask
+  model a ``PolygonAnnotation`` traced around the largest component of its
+  mask, or the rectangle when the mask is empty); returns a new project
+  holding only the detections;
 * ``infer_directory``: the project is every jpg/jpeg/png/bmp/tiff/tif file
   under a directory, recursively, then the same loop.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise rather than fall back to the CPU.
-Mask models' polygons and keypoints wait for ROADMAP.md items 10 and 11.
+Keypoints wait for ROADMAP.md item 11.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from podtpu_torch.data.annotation import RectangleAnnotation
+from podtpu_torch.data.annotation import (PolygonAnnotation,
+                                          RectangleAnnotation)
 from podtpu_torch.data.dataset import DetectionDataset
 from podtpu_torch.data.image import ImageMetadata
 from podtpu_torch.data.loader import Loader
 from podtpu_torch.data.project import Project
+from podtpu_torch.infer.masks import mask_to_polygons, paste_mask
 from podtpu_torch.models.detector import make_detector
 from podtpu_torch.models.roi_heads import Detections
 from podtpu_torch.models.weights import state_dict_from_flax
@@ -57,7 +61,8 @@ def load_inference_model(model_dir: str, device=None
     """Load a saved model directory -> ``(forward, model, cfg, labels)``.
 
     ``forward(images)`` takes ``[B, H, W, 3]`` uint8 canvases (numpy or
-    torch) and returns :class:`Detections` on the model's device.
+    torch) and returns :class:`Detections` on the model's device, for a
+    mask model with its masks (see :func:`split_eval_output`).
     """
     dev = resolve_device(device)
     params, frozen, cfg, labels = load_model(model_dir)
@@ -73,11 +78,15 @@ def load_inference_model(model_dir: str, device=None
     return forward, model, cfg, labels
 
 
-def split_eval_output(out: Detections) -> Tuple[
+def split_eval_output(out) -> Tuple[
         Detections, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """``(Detections, masks, keypoints)`` of an eval forward.  The models
-    ported so far have box heads only, so masks and keypoints are None."""
-    return out, None, None
+    """``(Detections, masks, keypoints)`` of an eval forward: a box model
+    returns ``Detections``, a mask model ``(Detections, masks [B, D, M,
+    M])``.  Keypoints (ROADMAP.md item 11) are None."""
+    if isinstance(out, Detections):
+        return out, None, None
+    det, masks = out
+    return det, masks, None
 
 
 def _run_inference(project: Project, model_dir: str,
@@ -107,25 +116,55 @@ def _run_inference(project: Project, model_dir: str,
     out = Project()
     out.task_names = dict(project.task_names)
     for batch, batch_valid in loader:
-        det = forward(batch["image"])
+        det, masks, _ = split_eval_output(forward(batch["image"]))
         boxes = det.boxes.float().cpu().numpy()
         scores = det.scores.float().cpu().numpy()
         labels = det.labels.cpu().numpy()
         valid = det.valid.cpu().numpy()
+        if masks is not None:
+            masks = masks.float().cpu().numpy()
         for i, ok in enumerate(batch_valid):
             if not ok:
                 continue
             meta = dataset.images[int(batch["index"][i])]
             scale = float(batch["scale"][i])
-            keep = valid[i] & (scores[i] > threshold)
-            for b, s, lab in zip(boxes[i][keep] / scale, scores[i][keep],
-                                 labels[i][keep]):
-                meta.boxes.append(RectangleAnnotation(
-                    float(b[0]), float(b[1]),
-                    float(b[2] - b[0]), float(b[3] - b[1]),
-                    model_labels[int(lab) - 1], score=float(s)))
+            keep = np.flatnonzero(valid[i] & (scores[i] > threshold))
+            for j in keep:
+                b, s = boxes[i, j] / scale, float(scores[i, j])
+                label = model_labels[int(labels[i, j]) - 1]
+                ann = None
+                if masks is not None:
+                    ann = mask_to_annotation(masks[i, j], b, label, s)
+                if ann is None:
+                    ann = RectangleAnnotation(
+                        float(b[0]), float(b[1]), float(b[2] - b[0]),
+                        float(b[3] - b[1]), label, score=s)
+                meta.boxes.append(ann)
             out.add_image(meta)
     return out
+
+
+def mask_to_annotation(mask: np.ndarray, box_orig: np.ndarray, label: str,
+                       score: float, max_grid: int = 256
+                       ) -> Optional[PolygonAnnotation]:
+    """A detection's ``[M, M]`` box-local mask -> a ``PolygonAnnotation``
+    in original-image coordinates around its largest connected component,
+    traced on a grid of about one cell per original pixel (at most
+    ``max_grid`` a side); None when the mask is empty."""
+    x0, y0, x1, y1 = [float(v) for v in box_orig]
+    bw, bh = x1 - x0, y1 - y0
+    if bw <= 0 or bh <= 0:
+        return None
+    gw = int(np.clip(np.ceil(bw), 2, max_grid))
+    gh = int(np.clip(np.ceil(bh), 2, max_grid))
+    local = paste_mask(mask, np.array([0.0, 0.0, gw, gh]), gh, gw)
+    polys = mask_to_polygons(local)
+    if not polys:
+        return None
+    poly = polys[0]
+    xs = x0 + (poly[:, 0] + 0.5) * bw / gw
+    ys = y0 + (poly[:, 1] + 0.5) * bh / gh
+    return PolygonAnnotation(xs.tolist(), ys.tolist(), label, score=score)
 
 
 def infer(project: Project,

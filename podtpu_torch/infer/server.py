@@ -8,6 +8,9 @@ thread, and run through the model on its device.
     POST /detect    body: image bytes; query: ?threshold=0.5
     ->  {"detections": [{"box": [x1,y1,x2,y2], "score": s, "label": name}],
          "width": W, "height": H}
+        (a mask model's detections also carry "polygon": [[x, y], ...],
+        the outline of the mask's largest component, where it is not
+        empty)
     GET  /healthz   -> {"status": "ok", "model": ..., "labels": [...]}
 
 ``DetectionServer.detect_array`` serves an RGB uint8 array directly; for an
@@ -30,6 +33,7 @@ import numpy as np
 from podtpu_torch.data.dataset import fit_resize
 from podtpu_torch.data.imageio import pil_to_rgb
 from podtpu_torch.infer.inference import (load_inference_model,
+                                          mask_to_annotation,
                                           split_eval_output)
 
 
@@ -62,11 +66,14 @@ class DetectionServer:
         self.image_size = cfg.image_size
 
         def run(images):
-            det, _, _ = split_eval_output(forward(images))
-            return {"boxes": det.boxes.cpu().numpy(),
-                    "scores": det.scores.cpu().numpy(),
-                    "labels": det.labels.cpu().numpy(),
-                    "valid": det.valid.cpu().numpy()}
+            det, masks, _ = split_eval_output(forward(images))
+            out = {"boxes": det.boxes.cpu().numpy(),
+                   "scores": det.scores.cpu().numpy(),
+                   "labels": det.labels.cpu().numpy(),
+                   "valid": det.valid.cpu().numpy()}
+            if masks is not None:
+                out["masks"] = masks.cpu().numpy()
+            return out
 
         self._forward = run
         self.batch_size = batch_size
@@ -161,12 +168,22 @@ class DetectionServer:
         self.batches_served += 1
         boxes, scores = out["boxes"], out["scores"]
         labels, valid = out["labels"], out["valid"]
+        masks = out.get("masks")
         for i, req in enumerate(batch):
             keep = np.flatnonzero(valid[i] & (scores[i] > req.threshold))
-            dets = [{"box": [float(v) for v in boxes[i, j] / req.scale],
-                     "score": float(scores[i, j]),
-                     "label": self.labels[int(labels[i, j]) - 1]}
-                    for j in keep]
+            dets = []
+            for j in keep:
+                box = boxes[i, j] / req.scale
+                entry = {"box": [float(v) for v in box],
+                         "score": float(scores[i, j]),
+                         "label": self.labels[int(labels[i, j]) - 1]}
+                if masks is not None:
+                    ann = mask_to_annotation(masks[i, j], box,
+                                             entry["label"], entry["score"])
+                    if ann is not None:
+                        entry["polygon"] = [[float(x), float(y)] for x, y
+                                            in zip(ann.xs, ann.ys)]
+                dets.append(entry)
             req.result = {"detections": dets, "width": req.size[1],
                           "height": req.size[0]}
             req.event.set()

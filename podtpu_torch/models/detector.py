@@ -1,17 +1,22 @@
-"""Faster R-CNN ResNet-50-FPN: eval forward and training losses.
+"""Faster R-CNN and Mask R-CNN ResNet-50-FPN: eval forward and training
+losses.
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
-``resnet50_fpn`` backbone with the MLP box head, and ``make_detector``).
+``resnet50_fpn`` backbone with the MLP box head and, with ``with_mask``,
+the mask head; and ``make_detector``).
 The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
 the JAX model, normalises them in float32 and runs the network on NCHW
 tensors in ``torch.channels_last`` memory.  Capacities are static:
 ``rpn_post_nms_topk_*`` proposals and ``detections_per_image`` detections
 per image, with validity masks.
 
-Given ground truth, the forward returns the four training losses instead of
-detections.  Its random decisions (the RPN's and the RoI head's sampler
-draws) are the explicit tensors of :class:`ModelDraws`, made by
-:func:`draw_model` from a ``torch.Generator`` or handed in by a caller.
+Given ground truth, the forward returns the training losses instead of
+detections (four, and ``loss_mask`` for a mask model given ``masks``).  A
+mask model's eval forward returns ``(Detections, masks)``, each detection's
+mask probabilities ``[B, D, 28, 28]`` for its label.  Its random decisions
+(the RPN's and the RoI head's sampler draws) are the explicit tensors of
+:class:`ModelDraws`, made by :func:`draw_model` from a ``torch.Generator``
+or handed in by a caller.
 """
 from __future__ import annotations
 
@@ -48,8 +53,13 @@ class FasterRCNN(nn.Module):
         self.rpn = rpn_lib.RegionProposalNetwork(
             rpn_lib.RPNHead(cfg.fpn_channels, cfg.anchors_per_location,
                             compute_dtype=dt), anchors)
-        self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
-                                    cfg.num_classes, compute_dtype=dt)
+        if cfg.with_mask:
+            self.roi_heads = rh.BoxMaskHead(
+                cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
+                cfg.mask_head_channels, compute_dtype=dt)
+        else:
+            self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
+                                        cfg.num_classes, compute_dtype=dt)
         self.register_buffer(
             "pixel_mean", torch.tensor(cfg.pixel_mean).view(1, 3, 1, 1),
             persistent=False)
@@ -68,10 +78,12 @@ class FasterRCNN(nn.Module):
     def forward(self, images: torch.Tensor, gt: Optional[Dict] = None,
                 draws: Optional["ModelDraws"] = None,
                 generator: Optional[torch.Generator] = None):
-        """Detections of ``[B, H, W, 3]`` images; with ``gt`` (``boxes
-        [B, G, 4]``, ``labels [B, G]``, ``valid [B, G]``, optional
-        ``image_weight [B]``) the dict of training losses, with the
-        sampler draws ``draws`` or, if None, draws from ``generator``."""
+        """Detections of ``[B, H, W, 3]`` images (with their masks for a
+        mask model); with ``gt`` (``boxes [B, G, 4]``, ``labels [B, G]``,
+        ``valid [B, G]``, optional ``image_weight [B]`` and, for a mask
+        model, ``masks [B, G, Hm, Wm]``) the dict of training losses, with
+        the sampler draws ``draws`` or, if None, draws from
+        ``generator``."""
         cfg = self.cfg
         pyramid = self.features(images)
         level_logits, level_deltas = self.rpn.head(pyramid)
@@ -87,9 +99,31 @@ class FasterRCNN(nn.Module):
         b, p = pooled.shape[:2]
         logits, deltas = self.roi_heads(pooled.reshape(b * p,
                                                        *pooled.shape[2:]))
-        return rh.postprocess_detections(
+        det = rh.postprocess_detections(
             logits.reshape(b, p, -1), deltas.reshape(b, p, -1),
             proposals.boxes, proposals.valid, cfg)
+        if cfg.with_mask:
+            return det, self._predict_masks(pyramid, det)
+        return det
+
+    def _mask_logits(self, pyramid, boxes):
+        """``[B, K, C, M, M]`` mask logits of ``[B, K, 4]`` boxes."""
+        pooled = rh.pool_rois_batched(pyramid, boxes, self.cfg,
+                                      pool_size=self.cfg.mask_pool_size,
+                                      channels_last=True)
+        b, k = pooled.shape[:2]
+        logits = self.roi_heads.mask_logits(
+            pooled.reshape(b * k, *pooled.shape[2:]))
+        return logits.reshape(b, k, *logits.shape[1:])
+
+    def _predict_masks(self, pyramid, det: rh.Detections) -> torch.Tensor:
+        """Sigmoid of each detection's label plane, ``[B, D, M, M]``
+        (every slot, valid or not)."""
+        logits = self._mask_logits(pyramid, det.boxes)
+        b, d = logits.shape[:2]
+        return torch.sigmoid(rh.pick_class(
+            logits.reshape(b * d, *logits.shape[2:]),
+            det.labels.reshape(-1)).reshape(b, d, *logits.shape[3:]))
 
     def _losses(self, pyramid, level_logits, level_deltas, gt, draws):
         cfg = self.cfg
@@ -116,10 +150,15 @@ class FasterRCNN(nn.Module):
         sw = None if img_w is None else img_w.repeat_interleave(s)
         cls_loss, box_loss = rh.box_head_losses(logits, deltas, flat,
                                                 sample_weight=sw)
-        return {"loss_objectness": obj_loss,
-                "loss_rpn_box_reg": rpn_box_loss,
-                "loss_classifier": cls_loss,
-                "loss_box_reg": box_loss}
+        losses = {"loss_objectness": obj_loss,
+                  "loss_rpn_box_reg": rpn_box_loss,
+                  "loss_classifier": cls_loss,
+                  "loss_box_reg": box_loss}
+        if cfg.with_mask and "masks" in gt:
+            losses["loss_mask"] = rh.mask_loss(
+                self._mask_logits(pyramid, sampled.boxes), sampled,
+                gt["masks"], cfg, img_weight=img_w)
+        return losses
 
 
 class ModelDraws(NamedTuple):
@@ -164,11 +203,12 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
         return (f"backbone_norm={cfg.backbone_norm!r} (ROADMAP.md, item 14: "
                 "trainable BatchNorm comes with the mobile trunks)")
     if cfg.box_head_type != "mlp" or cfg.rpn_conv_depth != 1 or cfg.fpn_norm:
-        return "the v2 recipe heads (ROADMAP.md, open item 1: v2 recipes)"
-    if cfg.with_mask:
-        return "with_mask (ROADMAP.md, open item 1: Mask R-CNN)"
+        return "the v2 recipe heads (ROADMAP.md, item 12: v2 recipes)"
+    if cfg.with_mask and cfg.mask_head_norm:
+        return ("mask_head_norm, the v2 normed mask tower (ROADMAP.md, item "
+                "12: v2 recipes)")
     if cfg.with_keypoints:
-        return "with_keypoints (ROADMAP.md, open item 1: Keypoint R-CNN)"
+        return "with_keypoints (ROADMAP.md, item 11: Keypoint R-CNN)"
     if cfg.anchors_per_location != len(cfg.anchor_ratios) \
             or len(cfg.strides) != 5:
         return "anchor layouts other than one size per P2..P6 level"
@@ -191,7 +231,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     frozen BatchNorm.  Draws come from ``generator`` (a CPU generator; the
     model must be on the CPU)."""
     for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, nn.ConvTranspose2d):
+            # [in, out, kH, kW]: flax's fan_in is in * kH * kW.
+            variance_scaling_(mod.weight.data.transpose(0, 1), 1.0,
+                              "fan_in", generator)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, (nn.Conv2d, nn.Linear)):
             stem = name.endswith("body.conv1")
             variance_scaling_(mod.weight.data, 2.0 if stem else 1.0,
                               "fan_out" if stem else "fan_in", generator)

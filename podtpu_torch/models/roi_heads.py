@@ -1,14 +1,16 @@
-"""RoI box head, RoI pooling, training targets and losses, and detection
-postprocess.
+"""RoI box and mask heads, RoI pooling, training targets and losses, and
+detection postprocess.
 
 Counterpart of ``podtpu/models/roi_heads.py``: ``BoxHead`` (torchvision's
-TwoMLPHead + FastRCNNPredictor), ``sample_rois`` and ``box_head_losses``
-(batched over images here, vmapped there), ``postprocess_detections`` and
-``pool_rois_batched``.  Module names follow torchvision
-(``box_head.fc6``, ``box_predictor.cls_score``).  fc6 consumes the pooled
-features flattened as (C, H, W), torchvision's order, so its weight is in
-torchvision layout; the JAX head flattens (H, W, C) and the weight bridge
-(``models/weights.py``) permutes between the two.
+TwoMLPHead + FastRCNNPredictor), ``BoxMaskHead`` (the same with the mask
+head, JAX's ``MaskHead``), ``sample_rois``, ``box_head_losses`` and
+``mask_loss`` (batched over images here, vmapped there),
+``postprocess_detections`` and ``pool_rois_batched``.  Module names follow
+torchvision (``box_head.fc6``, ``box_predictor.cls_score``,
+``mask_head.mask_fcn1``, ``mask_predictor.conv5_mask``).  fc6 consumes the
+pooled features flattened as (C, H, W), torchvision's order, so its weight
+is in torchvision layout; the JAX head flattens (H, W, C) and the weight
+bridge (``models/weights.py``) permutes between the two.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.core.config import ModelConfig
+from podtpu_torch.models.resnet import Conv2d
 from podtpu_torch.models.rpn import smooth_l1
 from podtpu_torch.ops import boxes as box_ops
 from podtpu_torch.ops import matching
 from podtpu_torch.ops.matching import stable_topk
 from podtpu_torch.ops.nms import NEG_INF, nms_keep_segments
-from podtpu_torch.ops.roi_align import batched_roi_align
+from podtpu_torch.ops.roi_align import _interp_axis, batched_roi_align
 
 
 class Linear(nn.Linear):
@@ -83,6 +86,82 @@ class BoxHead(nn.Module):
         return logits.float(), deltas.float()
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that computes in ``compute_dtype``; float32
+    params."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt), self.stride)
+
+
+class MaskRCNNHeads(nn.Module):
+    """Four 3x3 convolutions, each followed by ReLU (torchvision's
+    ``MaskRCNNHeads``, ``mask_fcn1`` .. ``mask_fcn4``)."""
+
+    def __init__(self, in_channels: int, channels: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        for i in range(1, 5):
+            setattr(self, f"mask_fcn{i}", Conv2d(
+                in_channels if i == 1 else channels, channels, 3, padding=1,
+                compute_dtype=compute_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(1, 5):
+            x = F.relu(getattr(self, f"mask_fcn{i}")(x))
+        return x
+
+
+class MaskRCNNPredictor(nn.Module):
+    """2x2 stride-2 transposed convolution and ReLU, then a 1x1 convolution
+    to one logit plane per class (torchvision's ``MaskRCNNPredictor``)."""
+
+    def __init__(self, channels: int, num_classes: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv5_mask = ConvTranspose2d(channels, channels, 2, stride=2,
+                                          compute_dtype=compute_dtype)
+        self.mask_fcn_logits = Conv2d(channels, num_classes, 1,
+                                      compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+class BoxMaskHead(BoxHead):
+    """The box head and Mask R-CNN's mask head (JAX's ``MaskHead``) under
+    one module, so their parameters carry torchvision's ``roi_heads.*``
+    names.  ``mask_logits`` maps ``[N, C, P, P]`` pooled features to float32
+    logits ``[N, num_classes, 2P, 2P]`` (channel 0, background, unused)."""
+
+    def __init__(self, channels: int, pool_size: int, num_classes: int,
+                 mask_channels: int = 256, hidden: int = 1024,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(channels, pool_size, num_classes, hidden,
+                         compute_dtype)
+        self.mask_head = MaskRCNNHeads(channels, mask_channels,
+                                       compute_dtype)
+        self.mask_predictor = MaskRCNNPredictor(mask_channels, num_classes,
+                                                compute_dtype)
+
+    def mask_logits(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.mask_predictor(self.mask_head(pooled)).float()
+
+
+def pick_class(mask_logits: torch.Tensor, labels: torch.Tensor):
+    """``[N, M, M]``: each RoI's plane of ``[N, C, M, M]`` for its label."""
+    idx = labels.long().view(-1, 1, 1, 1).expand(-1, 1,
+                                                  *mask_logits.shape[2:])
+    return torch.gather(mask_logits, 1, idx)[:, 0]
+
+
 class Detections(NamedTuple):
     boxes: torch.Tensor   # [B, D, 4] xyxy, canvas coords
     scores: torch.Tensor  # [B, D]
@@ -134,6 +213,7 @@ class SampledRois(NamedTuple):
     is_pos: torch.Tensor       # [B, S]
     cls_targets: torch.Tensor  # [B, S] int64, 0 = background
     reg_targets: torch.Tensor  # [B, S, 4]
+    gt_index: torch.Tensor     # [B, S] int64 matched gt (mask targets)
 
 
 @torch.no_grad()
@@ -167,7 +247,7 @@ def sample_rois(proposals: torch.Tensor, prop_valid: torch.Tensor,
         boxes=torch.where(samp.valid[..., None], sboxes,
                           torch.zeros_like(sboxes)),
         valid=samp.valid, is_pos=samp.is_pos, cls_targets=cls_t,
-        reg_targets=reg_t)
+        reg_targets=reg_t, gt_index=matched)
 
 
 def box_head_losses(logits: torch.Tensor, deltas: torch.Tensor,
@@ -196,17 +276,90 @@ def box_head_losses(logits: torch.Tensor, deltas: torch.Tensor,
 
 
 def pool_rois_batched(pyramid: Sequence[torch.Tensor], rois: torch.Tensor,
-                      cfg: ModelConfig,
-                      pool_size: Optional[int] = None) -> torch.Tensor:
+                      cfg: ModelConfig, pool_size: Optional[int] = None,
+                      channels_last: bool = False) -> torch.Tensor:
     """Multi-level RoIAlign of ``[B, K, 4]`` RoIs over the box-head levels
-    (NCHW, channels_last) -> ``[B, K, C, P, P]``, the order ``BoxHead``
-    flattens."""
+    (NCHW, channels_last) -> ``[B, K, C, P, P]``, contiguous in the order
+    ``BoxHead`` flattens, or with ``channels_last`` a view of the kernel's
+    ``[B, K, P, P, C]`` output (channels_last planes for the mask head's
+    convolutions)."""
     n_lvl = len(cfg.roi_strides)
     # The NHWC view of a channels_last level is contiguous: no copy.
     levels = [f.permute(0, 2, 3, 1).contiguous() for f in pyramid[:n_lvl]]
-    return batched_roi_align(
+    pooled = batched_roi_align(
         levels, rois, cfg.roi_strides,
         output_size=pool_size or cfg.roi_pool_size,
         sampling_ratio=cfg.roi_sampling_ratio,
         canonical_scale=cfg.roi_canonical_scale,
-        canonical_level=cfg.roi_canonical_level, channels_first=True)
+        canonical_level=cfg.roi_canonical_level,
+        channels_first=not channels_last)
+    return pooled.permute(0, 1, 4, 2, 3) if channels_last else pooled
+
+
+@torch.no_grad()
+def crop_mask_targets(masks: torch.Tensor, boxes: torch.Tensor,
+                      gt_index: torch.Tensor, stride: int, out: int,
+                      ratio: int = 2) -> torch.Tensor:
+    """Each RoI's matched gt plane cropped to its box and resampled to
+    ``[out, out]``: single-level RoIAlign (aligned=False, ``ratio`` samples
+    a bin axis) of the ``[B, G, Hm, Wm]`` planes at ``stride`` canvas px a
+    cell, for ``[B, S, 4]`` boxes and ``[B, S]`` gt indices -> ``[B, S, out,
+    out]`` float32.  Plain PyTorch on every device: the JAX package crops
+    with XLA's ``multilevel_roi_align``, not with its kernel."""
+    b, g, hm, wm = masks.shape
+    s = boxes.shape[1]
+    dev = boxes.device
+    flat = masks.float().reshape(-1)
+    plane = ((torch.arange(b, device=dev)[:, None] * g + gt_index)
+             * (hm * wm)).reshape(-1, 1, 1)                       # [N, 1, 1]
+    n = out * ratio
+    k = torch.arange(n, dtype=torch.float32, device=dev)
+    grid = (torch.div(k, ratio, rounding_mode="floor")
+            + (k % ratio + 0.5) / ratio)
+    bx = boxes.reshape(-1, 4) * (1.0 / float(stride))
+    x1, y1 = bx[:, 0], bx[:, 1]
+    roi_w = (bx[:, 2] - x1).clamp(min=1.0)
+    roi_h = (bx[:, 3] - y1).clamp(min=1.0)
+    ys = y1[:, None] + grid[None, :] * (roi_h / out)[:, None]       # [N, n]
+    xs = x1[:, None] + grid[None, :] * (roi_w / out)[:, None]
+    ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(
+        ys, torch.tensor(hm, device=dev))
+    xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(
+        xs, torch.tensor(wm, device=dev))
+
+    def at(yi, xi):
+        return flat[plane + yi[:, :, None] * wm + xi[:, None, :]]  # [N, n, n]
+
+    wy_lo_, wy_hi_ = wy_lo[:, :, None], wy_hi[:, :, None]
+    wx_lo_, wx_hi_ = wx_lo[:, None, :], wx_hi[:, None, :]
+    val = (at(ylo, xlo) * wy_lo_ * wx_lo_ + at(ylo, xhi) * wy_lo_ * wx_hi_
+           + at(yhi, xlo) * wy_hi_ * wx_lo_ + at(yhi, xhi) * wy_hi_ * wx_hi_)
+    val = val * (y_in[:, :, None] & x_in[:, None, :])
+    return val.reshape(b, s, out, ratio, out, ratio).mean(dim=(3, 5))
+
+
+def mask_loss(mask_logits: torch.Tensor, rois: SampledRois,
+              gt_masks: torch.Tensor, cfg: ModelConfig,
+              img_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary cross-entropy of the positive RoIs' masks (torchvision's
+    ``maskrcnn_loss``) over ``[B, S, C, M, M]`` logits, the ``[B, S]``
+    sampled RoIs and ``[B, G, Hm, Wm]`` gt planes: each RoI's matched gt
+    plane cropped to its box (:func:`crop_mask_targets`), its class's
+    logits against the target thresholded at 0.5, averaged over each
+    image's positive pixels; then the mean over images or, with
+    ``img_weight [B]``, the weighted mean."""
+    b, s = rois.boxes.shape[:2]
+    m = cfg.mask_resolution
+    stride = cfg.image_size[0] // gt_masks.shape[2]
+    targets = crop_mask_targets(gt_masks, rois.boxes, rois.gt_index, stride,
+                                m)
+    picked = pick_class(mask_logits.reshape(b * s, *mask_logits.shape[2:]),
+                        rois.cls_targets.reshape(-1)).reshape(b, s, m, m)
+    bce = (picked.clamp(min=0) - picked * (targets > 0.5)
+           + torch.log1p(torch.exp(-picked.abs())))
+    pw = (rois.is_pos & rois.valid).float()
+    denom = (pw.sum(1) * m * m).clamp(min=1.0)
+    losses = (bce * pw[:, :, None, None]).sum(dim=(1, 2, 3)) / denom
+    if img_weight is None:
+        return losses.mean()
+    return (losses * img_weight).sum() / img_weight.sum().clamp(min=1.0)

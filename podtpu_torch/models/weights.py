@@ -10,6 +10,8 @@ exact inverse.  The transforms are those of
 * dense weights: flax ``[in, out]`` <-> torch ``[out, in]``;
 * fc6: the JAX box head flattens pooled features as (H, W, C), the port as
   (C, H, W) (torchvision), so the input axis is permuted as well;
+* the mask head's transposed convolution: torch ``[in, out, kH, kW]`` <->
+  flax HWIO ``[kH, kW, in, out]`` with the spatial taps flipped;
 * frozen BatchNorm ``weight/bias/mean/var`` <-> the buffers
   ``weight/bias/running_mean/running_var``.
 """
@@ -37,9 +39,10 @@ def _layer(port: str, flax: str, kind: str,
     return out
 
 
-def key_map() -> List[Tuple[str, str, str, str]]:
+def key_map(with_mask: bool = False) -> List[Tuple[str, str, str, str]]:
     """``(port key, flax collection, flax path, kind)`` for every tensor of
-    the Faster R-CNN ResNet-50-FPN detector with the MLP box head."""
+    the Faster R-CNN ResNet-50-FPN detector with the MLP box head and, with
+    ``with_mask``, Mask R-CNN's mask head."""
     m = _layer("backbone.body.conv1", "backbone/conv1", "conv", bias=False)
     m += _bn("backbone.body.bn1", "backbone/bn1")
     for stage, blocks in enumerate(STAGE_SIZES, start=1):
@@ -66,6 +69,14 @@ def key_map() -> List[Tuple[str, str, str, str]]:
     m += _layer("roi_heads.box_head.fc7", "box_head/fc7", "dense")
     m += _layer("roi_heads.box_predictor.cls_score", "box_head/cls", "dense")
     m += _layer("roi_heads.box_predictor.bbox_pred", "box_head/reg", "dense")
+    if with_mask:
+        for i in range(1, 5):
+            m += _layer(f"roi_heads.mask_head.mask_fcn{i}",
+                        f"mask_head/conv{i}", "conv")
+        m += _layer("roi_heads.mask_predictor.conv5_mask", "mask_head/deconv",
+                    "deconv")
+        m += _layer("roi_heads.mask_predictor.mask_fcn_logits",
+                    "mask_head/logits", "conv")
     return m
 
 
@@ -87,6 +98,8 @@ def _set(tree: Dict, path: str, value: np.ndarray) -> None:
 def _to_torch(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
     if kind == "conv":    # HWIO -> OIHW
         return np.ascontiguousarray(np.transpose(v, (3, 2, 0, 1)))
+    if kind == "deconv":  # flipped HWIO -> [in, out, kH, kW]
+        return np.ascontiguousarray(np.transpose(v[::-1, ::-1], (2, 3, 0, 1)))
     if kind == "dense":   # [in, out] -> [out, in]
         return np.ascontiguousarray(v.T)
     if kind == "fc6":     # [(H, W, C), out] -> [out, (C, H, W)]
@@ -100,6 +113,8 @@ def _to_torch(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
 def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
     if kind == "conv":    # OIHW -> HWIO
         return np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))
+    if kind == "deconv":  # [in, out, kH, kW] -> flipped HWIO
+        return np.ascontiguousarray(np.transpose(v, (2, 3, 0, 1))[::-1, ::-1])
     if kind == "dense":
         return np.ascontiguousarray(v.T)
     if kind == "fc6":     # [out, (C, H, W)] -> [(H, W, C), out]
@@ -113,10 +128,11 @@ def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
 def state_dict_from_flax(params: Dict, frozen: Dict,
                          pool_size: int = 7) -> Dict[str, np.ndarray]:
     """The port's state dict (numpy arrays) from flax ``params``/``frozen``
-    trees; raises ``KeyError`` naming a missing tree entry."""
+    trees (with the mask head when ``params`` has one); raises ``KeyError``
+    naming a missing tree entry."""
     trees = {"params": params, "frozen": frozen}
     sd = {}
-    for key, coll, path, kind in key_map():
+    for key, coll, path, kind in key_map("mask_head" in params):
         try:
             value = _get(trees[coll], path)
         except KeyError:
@@ -129,9 +145,10 @@ def state_dict_from_flax(params: Dict, frozen: Dict,
 def flax_from_state_dict(state_dict: Dict,
                          pool_size: int = 7) -> Tuple[Dict, Dict]:
     """``(params, frozen)`` flax trees of numpy arrays from the port's state
-    dict (tensors or arrays)."""
+    dict (tensors or arrays), with the mask head when it has one."""
     trees: Dict[str, Dict] = {"params": {}, "frozen": {}}
-    for key, coll, path, kind in key_map():
+    with_mask = "roi_heads.mask_predictor.conv5_mask.weight" in state_dict
+    for key, coll, path, kind in key_map(with_mask):
         value = state_dict[key]
         if hasattr(value, "detach"):
             value = value.detach().cpu().numpy()
@@ -159,6 +176,17 @@ def _unflatten(flat: Dict[Tuple, object]) -> Dict:
     return tree
 
 
+def _torchvision_alias(key: str) -> str:
+    """The port's name for a torchvision key that newer torchvision spells
+    differently: the mask tower's ``mask_head.{i-1}.0`` (a
+    ``Conv2dNormActivation``) is ``mask_head.mask_fcn{i}``."""
+    parts = key.split(".")
+    if parts[:2] == ["roi_heads", "mask_head"] and len(parts) == 5 \
+            and parts[2].isdigit() and parts[3] == "0":
+        return f"roi_heads.mask_head.mask_fcn{int(parts[2]) + 1}.{parts[4]}"
+    return key
+
+
 def load_pretrained(model, path: str, verbose: bool = True):
     """Load pretrained weights into ``model`` (in place); returns it.
 
@@ -169,7 +197,8 @@ def load_pretrained(model, path: str, verbose: bool = True):
     another label set) keeps the model's value, with a printed line.  Or
     ``path`` is a ``.pth``/``.pt`` state dict in torchvision's names and
     layouts (optionally under a ``"state_dict"`` key), loaded with the same
-    shape rule.
+    shape rule: a Mask R-CNN checkpoint's class-sized ``mask_fcn_logits``
+    loads only when the class count matches, as the box predictor's.
     """
     import os
 
@@ -211,6 +240,7 @@ def load_pretrained(model, path: str, verbose: bool = True):
         own = model.state_dict()
         with torch.no_grad():
             for k, v in state_dict.items():
+                k = _torchvision_alias(k)
                 if k in own and tuple(own[k].shape) == tuple(v.shape):
                     own[k].copy_(v)
                     copied += 1

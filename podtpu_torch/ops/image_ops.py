@@ -1,12 +1,12 @@
 """Device-side augmentation on batches of ``[B, H, W, 3]`` float images.
 
 Counterpart of ``podtpu/ops/image_ops.py`` (``hflip``, ``vflip``,
-``rgb_to_hsv``, ``hsv_to_rgb``, ``photometric_distort``), batched with one
-decision per image: each transform is computed for the whole batch and
-selected per image with ``torch.where``, as the JAX package selects inside
-its vmap.  The random numbers are the explicit tensors of
-:class:`PhotometricDraws`; :func:`draw_photometric` makes them from a
-``torch.Generator``.
+``rgb_to_hsv``, ``hsv_to_rgb``, ``photometric_distort``,
+``copy_paste_batch``), batched with one decision per image: each
+transform is computed for the whole batch and selected per image with
+``torch.where``, as the JAX package selects inside its vmap.  The random numbers are the explicit tensors of
+:class:`PhotometricDraws` and copy-paste's ``[B, G]`` uniforms;
+:func:`draw_photometric` makes the former from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -148,3 +148,61 @@ def photometric_distort(images: torch.Tensor, draws: PhotometricDraws,
     img = torch.where(_per_image(draws.apply_permutation < p),
                       torch.gather(img, -1, perm), img)
     return img.clamp(0.0, 1.0)
+
+
+@torch.no_grad()
+def copy_paste_batch(keep_draw: torch.Tensor, images: torch.Tensor,
+                     boxes: torch.Tensor, labels: torch.Tensor,
+                     valid: torch.Tensor, masks=None, region_stride: int = 8):
+    """Simple Copy-Paste, batch-level: each image receives the instances of
+    its batch neighbour (roll by 1), each kept where its uniform of
+    ``keep_draw [B, G]`` is below 0.5.
+
+    With ``masks [B, G, Hm, Wm]`` the pasted region is the union of the kept
+    instances' masks; without, the union of their boxes, on a grid of
+    ``region_stride`` px cells tested at the cells' centres.  The gt merge
+    keeps the originals first and the pasted ones after, compacted stably
+    to the ``G`` slots; the originals' masks are clipped by the region (their
+    boxes are kept).  Returns ``(images, boxes, labels, valid, masks)``."""
+    b, h, w, _ = images.shape
+    g = boxes.shape[1]
+    src_img = images.roll(1, 0)
+    src_boxes = boxes.roll(1, 0)
+    src_labels = labels.roll(1, 0)
+    src_masks = masks.roll(1, 0) if masks is not None else None
+    keep_paste = (keep_draw < 0.5) & valid.roll(1, 0)
+    if src_masks is not None:
+        region = ((src_masks * keep_paste[:, :, None, None]) > 0.5).any(1)
+        mh, mw = region.shape[1:]
+        sy, sx = h // mh, w // mw
+    else:
+        mh, mw = h // region_stride, w // region_stride
+        sy = sx = region_stride
+        dev = images.device
+        yy = (torch.arange(mh, dtype=torch.float32, device=dev) + 0.5) * sy
+        xx = (torch.arange(mw, dtype=torch.float32, device=dev) + 0.5) * sx
+        x1, y1, x2, y2 = (c[:, :, None, None] for c in src_boxes.unbind(-1))
+        inside = ((xx[None, None, None, :] >= x1)
+                  & (xx[None, None, None, :] < x2)
+                  & (yy[None, None, :, None] >= y1)
+                  & (yy[None, None, :, None] < y2))
+        region = (inside & keep_paste[:, :, None, None]).any(1)
+    full = region.repeat_interleave(sy, 1).repeat_interleave(sx, 2)
+    full = full[:, :h, :w, None]
+    out_images = torch.where(full, src_img, images)
+
+    all_valid = torch.cat([valid, keep_paste], 1)
+    order = torch.argsort((~all_valid).to(torch.uint8), dim=1,
+                          stable=True)[:, :g]
+    out_boxes = torch.gather(torch.cat([boxes, src_boxes], 1), 1,
+                             order[..., None].expand(-1, -1, 4))
+    out_labels = torch.gather(torch.cat([labels, src_labels], 1), 1, order)
+    out_valid = torch.gather(all_valid, 1, order)
+    out_masks = None
+    if masks is not None:
+        clipped = masks * (1.0 - region[:, None].to(masks.dtype))
+        all_masks = torch.cat([clipped, src_masks], 1)
+        out_masks = torch.gather(
+            all_masks, 1, order[:, :, None, None].expand(
+                -1, -1, *all_masks.shape[2:]))
+    return out_images, out_boxes, out_labels, out_valid, out_masks

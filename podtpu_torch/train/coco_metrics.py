@@ -16,11 +16,12 @@ AP averaged over classes with ground truth.  The reference's modified
 quirk of printing "maxDets=100" in the row names while the values use the
 configured maxDets.
 
-Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``:
-the greedy matcher runs in the native C++ host library
-(:mod:`podtpu_torch.core.native`) when it loads, else as a Python loop; both
-give the same matches.  Mask and keypoint
-evaluation wait for ROADMAP.md items 10 and 11.
+Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``
+and ``"segm"`` (masks as bitmaps on a common grid, or as full-resolution
+:class:`~podtpu_torch.infer.masks.RegionMask` lists): the greedy matcher
+runs in the native C++ host library (:mod:`podtpu_torch.core.native`) when
+it loads, else as a Python loop; both give the same matches.  Keypoint
+evaluation (OKS) waits for ROADMAP.md item 11.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from podtpu_torch.core import native
+from podtpu_torch.infer.masks import mask_iou, region_mask_iou
 
 IOU_THRS = np.round(np.arange(0.5, 1.0, 0.05), 2)  # 10 thresholds
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -89,10 +91,12 @@ class COCOEvaluator:
     def __init__(self, num_classes: int,
                  max_dets: Sequence[int] = (10, 30, 300),
                  iou_type: str = "bbox"):
-        if iou_type != "bbox":
+        if iou_type == "keypoints":
             raise NotImplementedError(
-                f"podtpu_torch does not port iou_type={iou_type!r} yet "
-                "(ROADMAP.md, items 10 and 11: Mask and Keypoint R-CNN)")
+                "podtpu_torch does not port iou_type='keypoints' yet "
+                "(ROADMAP.md, item 11: Keypoint R-CNN)")
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"unknown iou_type {iou_type!r}")
         self.num_classes = num_classes  # foreground classes, labels 1..K
         self.max_dets = tuple(max_dets)
         self.iou_type = iou_type
@@ -107,18 +111,46 @@ class COCOEvaluator:
 
     def update(self, gt_boxes: np.ndarray, gt_labels: np.ndarray,
                dt_boxes: np.ndarray, dt_scores: np.ndarray,
-               dt_labels: np.ndarray) -> None:
+               dt_labels: np.ndarray,
+               gt_masks: Optional[np.ndarray] = None,
+               dt_masks: Optional[np.ndarray] = None,
+               area_scale: float = 1.0) -> None:
         """Add one image's ground truth + detections (xyxy boxes in
-        original-image coordinates)."""
+        original-image coordinates).
+
+        For ``iou_type="segm"``: ``gt_masks``/``dt_masks`` are either
+        ``[G|D, H, W]`` boolean bitmaps on a common grid or lists of
+        ``RegionMask`` (full-resolution, box-bounded); IoU and object areas
+        come from the masks, ``area_scale`` converting grid px^2 to
+        original-image px^2 (COCO's area ranges are in image pixels).
+        """
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
         dt_boxes = np.asarray(dt_boxes, np.float64).reshape(-1, 4)
         gt_labels = np.asarray(gt_labels).reshape(-1)
         dt_labels = np.asarray(dt_labels).reshape(-1)
         dt_scores = np.asarray(dt_scores, np.float64).reshape(-1)
-        gt_area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * \
-                  (gt_boxes[:, 3] - gt_boxes[:, 1])
-        dt_area = (dt_boxes[:, 2] - dt_boxes[:, 0]) * \
-                  (dt_boxes[:, 3] - dt_boxes[:, 1])
+        segm = self.iou_type == "segm"
+        region_masks = False
+        if segm:
+            if gt_masks is None or dt_masks is None:
+                raise ValueError("iou_type='segm' needs gt_masks and "
+                                 "dt_masks")
+            region_masks = isinstance(gt_masks, list)
+            if region_masks:
+                gt_area = np.asarray([m.area for m in gt_masks],
+                                     np.float64) * area_scale
+                dt_area = np.asarray([m.area for m in dt_masks],
+                                     np.float64) * area_scale
+            else:
+                gt_masks = np.asarray(gt_masks).astype(bool)
+                dt_masks = np.asarray(dt_masks).astype(bool)
+                gt_area = gt_masks.sum(axis=(1, 2)) * area_scale
+                dt_area = dt_masks.sum(axis=(1, 2)) * area_scale
+        else:
+            gt_area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * \
+                      (gt_boxes[:, 3] - gt_boxes[:, 1])
+            dt_area = (dt_boxes[:, 2] - dt_boxes[:, 0]) * \
+                      (dt_boxes[:, 3] - dt_boxes[:, 1])
 
         for k in range(1, self.num_classes + 1):
             g_sel = gt_labels == k
@@ -129,7 +161,15 @@ class COCOEvaluator:
             # Detections in descending score order, capped at max maxDets.
             order = np.argsort(-d_score, kind="stable")[: max(self.max_dets)]
             d_area, d_score = d_area[order], d_score[order]
-            iou = pairwise_iou(dt_boxes[d_sel][order], gt_boxes[g_sel])
+            if region_masks:
+                d_idx = np.flatnonzero(d_sel)[order]
+                iou = region_mask_iou([dt_masks[i] for i in d_idx],
+                                      [gt_masks[i]
+                                       for i in np.flatnonzero(g_sel)])
+            elif segm:
+                iou = mask_iou(dt_masks[d_sel][order], gt_masks[g_sel])
+            else:
+                iou = pairwise_iou(dt_boxes[d_sel][order], gt_boxes[g_sel])
             for aname, (lo, hi) in AREA_RANGES.items():
                 g_ig = (g_area < lo) | (g_area > hi)
                 self._evals[(k, aname)].append(

@@ -19,10 +19,8 @@ from podtpu_torch.data.presets import (AugmentDraws, augment_batch_policy,
                                        policy_kwargs)
 from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.detector import ModelDraws, draw_model
+from podtpu_torch.ops.image_ops import copy_paste_batch
 from podtpu_torch.train.optim import apply_optimizer
-
-LOSS_KEYS = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier",
-             "loss_box_reg")
 
 
 def images_to_float(images: torch.Tensor) -> torch.Tensor:
@@ -35,16 +33,22 @@ def images_to_float(images: torch.Tensor) -> torch.Tensor:
 class TrainDraws(NamedTuple):
     augment: AugmentDraws
     model: ModelDraws
+    # [B, G] uniforms: copy-paste keeps the neighbour's gt where < 0.5
+    # (only with DataConfig.copy_paste).
+    copy_paste: Optional[torch.Tensor] = None
 
 
 def draw_train(generator: torch.Generator, cfg: Config,
                batch: Dict[str, torch.Tensor]) -> TrainDraws:
     """Every random number of one step for ``batch``, on ``generator``'s
     device."""
-    b = batch["image"].shape[0]
+    b, g = batch["boxes"].shape[:2]
+    cp = None
+    if cfg.data.copy_paste:
+        cp = torch.rand((b, g), generator=generator, device=generator.device)
     return TrainDraws(
         augment=draw_augment(generator, b),
-        model=draw_model(generator, cfg.model, b, batch["boxes"].shape[1]))
+        model=draw_model(generator, cfg.model, b, g), copy_paste=cp)
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -57,18 +61,17 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     parameters), which is the GPU unless the caller passes ``"cpu"``; with
     no GPU and no device this raises.  ``batch`` holds ``image`` uint8
     ``[B, H, W, 3]``, ``boxes [B, G, 4]``, ``labels [B, G]``, ``valid
-    [B, G]`` and optionally ``image_weight [B]``; it is moved to the
-    device.  ``generator`` (on the device) makes the step's draws unless
-    ``draws`` gives them.  ``metrics`` holds the four losses, their sum
-    ``loss`` and ``lr``, as tensors (reading them waits for the step).
+    [B, G]`` and optionally ``image_weight [B]`` and mask targets ``masks
+    [B, G, Hm, Wm]``; it is moved to the device.  With
+    ``DataConfig.copy_paste`` the batch is copy-pasted before the policy.
+    ``generator`` (on the device) makes the step's draws unless ``draws``
+    gives them.  ``metrics`` holds the losses (``loss_mask`` too for a mask
+    model), their sum ``loss`` and ``lr``, as tensors (reading them waits
+    for the step).
     ``mark``, if given, is called with ``"augment"``, ``"forward_losses"``,
     ``"backward"`` and ``"optimizer"`` as each part of a step begins, and
     with ``"end"`` after the last, so a profiler can time the parts.
     """
-    if cfg.data.copy_paste:
-        raise NotImplementedError(
-            "podtpu_torch does not port copy-paste yet (ROADMAP.md, open "
-            "item 1: the other augmentation policies and copy-paste)")
     policy = get_policy(cfg.data.aug_policy)
     policy_kw = policy_kwargs(cfg)
     clip = cfg.train.clip_grad_norm
@@ -85,15 +88,23 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             if generator is None:
                 raise ValueError("step needs a torch.Generator or draws")
             draws = draw_train(generator, cfg, batch)
-        images, boxes, valid = augment_batch_policy(
-            policy, images_to_float(batch["image"]), batch["boxes"],
-            batch["valid"], draws.augment, **policy_kw)
-        gt = {"boxes": boxes, "labels": batch["labels"], "valid": valid}
+        images, boxes, labels, valid, masks = (
+            images_to_float(batch["image"]), batch["boxes"],
+            batch["labels"], batch["valid"], batch.get("masks"))
+        if cfg.data.copy_paste:
+            images, boxes, labels, valid, masks = copy_paste_batch(
+                draws.copy_paste, images, boxes, labels, valid, masks)
+        images, boxes, valid, masks = augment_batch_policy(
+            policy, images, boxes, valid, draws.augment, masks=masks,
+            **policy_kw)
+        gt = {"boxes": boxes, "labels": labels, "valid": valid}
+        if masks is not None:
+            gt["masks"] = masks
         if "image_weight" in batch:
             gt["image_weight"] = batch["image_weight"]
         mark("forward_losses")
         losses = model(images, gt=gt, draws=draws.model)
-        total = sum(losses[k] for k in LOSS_KEYS)
+        total = sum(losses.values())
         mark("backward")
         optimizer.zero_grad(set_to_none=True)
         total.backward()

@@ -160,8 +160,9 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
         missing = "the v2 recipe (item 12: v2 recipes)"
     elif net != "resnet50_fpn":
         missing = f"backbone={net!r} (item 14: the mobile trunks)"
-    elif mask:
-        missing = "with_mask (item 10: Mask R-CNN)"
+    elif mask and model_cfg.mask_head_norm:
+        missing = "mask_head_norm, the v2 normed mask tower (item 12: v2 " \
+                  "recipes)"
     elif kps:
         missing = "with_keypoints (item 11: Keypoint R-CNN)"
     elif num_devices is not None and num_devices > 1:
@@ -470,6 +471,9 @@ def _stop_trace(prof, trace_dir: str) -> None:
 def _save_aux_results(output_dir, final_eval, stats, labels):
     ckpt.save_labels(output_dir, labels)
     ckpt.save_results(output_dir, stats, STAT_NAMES)
+    if getattr(final_eval, "segm_stats", None) is not None:
+        ckpt.save_results(output_dir, final_eval.segm_stats, STAT_NAMES,
+                          filename="results_segm.txt")
     if len(labels) > 1:
         # Per-class breakdown (beyond the reference's class-averaged
         # stats).
@@ -487,7 +491,8 @@ def evaluate_model(project: Project,
                    output_dir: Optional[str] = None,
                    device=None):
     """Evaluate a saved model on ``project`` without training (the vendored
-    trainer's ``--test-only``); returns the 12 bbox COCO stats.  Every
+    trainer's ``--test-only``); returns the 12 bbox COCO stats (a mask
+    model's segm stats are printed, and written with the others).  Every
     annotated image of ``project`` is scored; with ``output_dir`` the
     results files are written there in the training artifacts' format.
     ``device``: the GPU when None (raises when there is none)."""

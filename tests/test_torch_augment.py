@@ -146,12 +146,13 @@ class TestPolicies:
             jax_presets.get_policy(policy), rng, jnp.asarray(img),
             jnp.asarray(boxes), jnp.asarray(valid), **kw)
         draws = jax_augment_draws(rng, 8, policy)
-        gi, gb, gv = presets.augment_batch_policy(
+        gi, gb, gv, gm = presets.augment_batch_policy(
             presets.get_policy(policy), t(img), t(boxes), t(valid), draws,
             **kw)
         np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=1e-5)
         np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        assert gm is None
         if policy != "none":  # some images flipped, some not
             flipped = draws.hflip < 0.5
             if policy == "miso":
@@ -165,10 +166,16 @@ class TestPolicies:
         with pytest.raises(ValueError):
             presets.get_policy("nope")
         assert presets.get_policy("none") is presets.none_policy
+        # Copy-paste is ported: its draws are part of a step's.
         copy_paste = port_config.Config(
             data=port_config.DataConfig(copy_paste=True))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step.make_train_step(None, None, copy_paste)
+        batch = {"image": torch.zeros(2, 8, 8, 3, dtype=torch.uint8),
+                 "boxes": torch.zeros(2, 5, 4)}
+        draws = step.draw_train(torch.Generator().manual_seed(0), copy_paste,
+                                batch)
+        assert draws.copy_paste.shape == (2, 5)
+        assert step.draw_train(torch.Generator().manual_seed(0),
+                               port_config.Config(), batch).copy_paste is None
         for aug, distort in (("miso", False), ("hflip", True)):
             jcfg = JaxConfig(data=JaxDataConfig(aug_policy=aug,
                                                 photometric_distort=distort))

@@ -37,6 +37,7 @@ from podtpu_torch.models.resnet import FrozenBatchNorm2d
 from podtpu_torch.models.weights import key_map, state_dict_from_flax
 from podtpu_torch.train import calibrate
 from tests.conftest import tiny_config
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 TOL = 1e-3           # of each tensor's largest absolute value, per pass
 STRAIGHT_TOL = 5e-3  # the same, after 12 straight (chaotic) passes

@@ -42,6 +42,7 @@ from podtpu.data.project import Project as JaxProject
 from podtpu_torch.data.project import Project
 from tests.fake_cvat import FakeCvatServer, FakeCvatState
 from tests.synthetic import draw_particle
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 LABELS = [{"id": 10, "name": "particle", "color": "#ff0000"},
@@ -331,7 +332,8 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["classify-crops", "-i", "crops", "--model", "m"], "item 15"),
     (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
     (["serve", "--model", "m", "--exported"], "item 17"),
-    (["train-object-detector", "-t", "5", "--with-mask"], "item 10"),
+    (["train-object-detector", "-t", "5", "--with-mask", "--family",
+      "faster_rcnn_v2"], "item 12"),
     (["train-object-detector", "-t", "5", "--with-keypoints"], "item 11"),
     (["train-object-detector", "-t", "5", "--family", "retinanet"],
      "item 13"),

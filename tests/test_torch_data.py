@@ -222,8 +222,9 @@ def check_dataset_load_and_collate(jpeg_project, capsys):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="items 10 and 11"):
-        dataset.DetectionDataset(port_project(jpeg_project), with_masks=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        dataset.DetectionDataset(port_project(jpeg_project),
+                                 with_keypoints=True)
 
 
 def test_dataset_load_and_collate(jpeg_project, capsys):
@@ -380,8 +381,10 @@ def test_coco_evaluator(matcher, seed, monkeypatch):
 
 
 def test_coco_evaluator_refuses_other_iou_types():
-    with pytest.raises(NotImplementedError, match="items 10 and 11"):
-        coco_metrics.COCOEvaluator(num_classes=2, iou_type="segm")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        coco_metrics.COCOEvaluator(num_classes=2, iou_type="keypoints")
+    with pytest.raises(ValueError, match="iou_type"):
+        coco_metrics.COCOEvaluator(num_classes=2, iou_type="boxes")
 
 
 # -- LR schedules ---------------------------------------------------------------

@@ -81,6 +81,7 @@ from podtpu_torch.train import train as port_train
 from tests.conftest import tiny_config
 from tests.synthetic import make_project
 from tests.test_torch_data import port_project
+from tests.test_torch_mask import torch_threads  # noqa: F401
 from tests.test_torch_train import jax_draws
 
 SEED = 0
@@ -298,7 +299,9 @@ def port_runs(root, project, cfg, pretrained):
     compiles for most of its 40 s: in one process the two would take turns
     at the interpreter lock."""
     jax.config.update("jax_platforms", "cpu")
-    # Half the cores: the JAX run beside this one is the longer.
+    # Half the cores: the JAX run beside this one is the longer.  (At 2
+    # threads the first epoch's parameters, 4.8e-6 from JAX's here, moved
+    # 1.02e-5 from them: float32 sums in another order.)
     torch.set_num_threads(max(1, torch.get_num_threads() // 2))
     rec = {k: [] for k in ("losses", "stats", "steps", "params")}
     rec["snapshot"] = os.path.join(root, "resumed")
@@ -508,7 +511,7 @@ class TestResume:
     (dict(family="faster_rcnn_v2"), "item 12"),
     (dict(family="ssdlite"), "item 14"),
     (dict(backbone="mobilenet_v3_fpn"), "item 14"),
-    (dict(with_mask=True), "item 10"),
+    (dict(with_mask=True, family="faster_rcnn_v2"), "item 12"),
     (dict(with_keypoints=True), "item 11"),
     (dict(num_devices=2), "item 18"),
 ])

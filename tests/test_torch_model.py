@@ -240,7 +240,8 @@ class TestEvalForward:
             cfg = model_config_from_dict(dataclasses.asdict(jcfg))
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 make_detector(cfg)
-        for kw in (dict(family="retinanet"), dict(with_mask=True),
+        for kw in (dict(family="retinanet"),
+                   dict(with_mask=True, mask_head_norm=True),
                    dict(with_keypoints=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 make_detector(ModelConfig(**kw))
