@@ -27,7 +27,8 @@ from podtpu_torch.ops import boxes as box_ops
 from podtpu_torch.ops import matching
 from podtpu_torch.ops.matching import stable_topk
 from podtpu_torch.ops.nms import NEG_INF, nms_keep_segments
-from podtpu_torch.ops.roi_align import _interp_axis, batched_roi_align
+from podtpu_torch.ops.roi_align import (batched_roi_align,
+                                       roi_align_planes_plain)
 
 
 class Linear(nn.Linear):
@@ -301,41 +302,16 @@ def crop_mask_targets(masks: torch.Tensor, boxes: torch.Tensor,
                       gt_index: torch.Tensor, stride: int, out: int,
                       ratio: int = 2) -> torch.Tensor:
     """Each RoI's matched gt plane cropped to its box and resampled to
-    ``[out, out]``: single-level RoIAlign (aligned=False, ``ratio`` samples
-    a bin axis) of the ``[B, G, Hm, Wm]`` planes at ``stride`` canvas px a
-    cell, for ``[B, S, 4]`` boxes and ``[B, S]`` gt indices -> ``[B, S, out,
+    ``[out, out]``: the ``[B, G, Hm, Wm]`` planes at ``stride`` canvas px a
+    cell, ``[B, S, 4]`` boxes and ``[B, S]`` gt indices -> ``[B, S, out,
     out]`` float32.  Plain PyTorch on every device: the JAX package crops
     with XLA's ``multilevel_roi_align``, not with its kernel."""
-    b, g, hm, wm = masks.shape
+    b, g = masks.shape[:2]
     s = boxes.shape[1]
-    dev = boxes.device
-    flat = masks.float().reshape(-1)
-    plane = ((torch.arange(b, device=dev)[:, None] * g + gt_index)
-             * (hm * wm)).reshape(-1, 1, 1)                       # [N, 1, 1]
-    n = out * ratio
-    k = torch.arange(n, dtype=torch.float32, device=dev)
-    grid = (torch.div(k, ratio, rounding_mode="floor")
-            + (k % ratio + 0.5) / ratio)
-    bx = boxes.reshape(-1, 4) * (1.0 / float(stride))
-    x1, y1 = bx[:, 0], bx[:, 1]
-    roi_w = (bx[:, 2] - x1).clamp(min=1.0)
-    roi_h = (bx[:, 3] - y1).clamp(min=1.0)
-    ys = y1[:, None] + grid[None, :] * (roi_h / out)[:, None]       # [N, n]
-    xs = x1[:, None] + grid[None, :] * (roi_w / out)[:, None]
-    ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(
-        ys, torch.tensor(hm, device=dev))
-    xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(
-        xs, torch.tensor(wm, device=dev))
-
-    def at(yi, xi):
-        return flat[plane + yi[:, :, None] * wm + xi[:, None, :]]  # [N, n, n]
-
-    wy_lo_, wy_hi_ = wy_lo[:, :, None], wy_hi[:, :, None]
-    wx_lo_, wx_hi_ = wx_lo[:, None, :], wx_hi[:, None, :]
-    val = (at(ylo, xlo) * wy_lo_ * wx_lo_ + at(ylo, xhi) * wy_lo_ * wx_hi_
-           + at(yhi, xlo) * wy_hi_ * wx_lo_ + at(yhi, xhi) * wy_hi_ * wx_hi_)
-    val = val * (y_in[:, :, None] & x_in[:, None, :])
-    return val.reshape(b, s, out, ratio, out, ratio).mean(dim=(3, 5))
+    plane = torch.arange(b, device=boxes.device)[:, None] * g + gt_index
+    return roi_align_planes_plain(
+        masks.reshape(b * g, *masks.shape[2:]), boxes.reshape(-1, 4),
+        plane.reshape(-1), stride, out, ratio).reshape(b, s, out, out)
 
 
 def mask_loss(mask_logits: torch.Tensor, rois: SampledRois,

@@ -66,6 +66,20 @@ def _interp_axis(coord: torch.Tensor, size: torch.Tensor):
     return lo_i, hi_i, 1.0 - frac, frac, inside
 
 
+def _sample_coords(boxes: torch.Tensor, scale, out: int, ratio: int):
+    """Sample rows and columns ``[K, out * ratio]``, in level cells, of
+    ``[K, 4]`` canvas boxes at ``scale`` cells a pixel (aligned=False)."""
+    k = torch.arange(out * ratio, dtype=torch.float32, device=boxes.device)
+    grid = torch.div(k, ratio, rounding_mode="floor") + (k % ratio + 0.5) / ratio
+    x1 = boxes[:, 0] * scale
+    y1 = boxes[:, 1] * scale
+    roi_w = (boxes[:, 2] * scale - x1).clamp(min=1.0)
+    roi_h = (boxes[:, 3] * scale - y1).clamp(min=1.0)
+    ys = y1[:, None] + grid[None, :] * (roi_h / out)[:, None]
+    xs = x1[:, None] + grid[None, :] * (roi_w / out)[:, None]
+    return ys, xs
+
+
 def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
                          level: torch.Tensor, strides: Sequence[int],
                          out: int, ratio: int) -> torch.Tensor:
@@ -84,15 +98,7 @@ def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
     scale = (1.0 / torch.tensor(strides, dtype=torch.float32,
                                 device=dev))[level.long()]
 
-    n = out * ratio
-    k = torch.arange(n, dtype=torch.float32, device=dev)
-    grid = torch.div(k, ratio, rounding_mode="floor") + (k % ratio + 0.5) / ratio
-    x1 = boxes[:, 0] * scale
-    y1 = boxes[:, 1] * scale
-    roi_w = (boxes[:, 2] * scale - x1).clamp(min=1.0)
-    roi_h = (boxes[:, 3] * scale - y1).clamp(min=1.0)
-    ys = y1[:, None] + grid[None, :] * (roi_h / out)[:, None]   # [K, n]
-    xs = x1[:, None] + grid[None, :] * (roi_w / out)[:, None]
+    ys, xs = _sample_coords(boxes, scale, out, ratio)             # [K, n]
     ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(ys, height[:, None])
     xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(xs, width[:, None])
 
@@ -143,6 +149,36 @@ def batched_roi_align_plain(features: Sequence[torch.Tensor],
     if channels_first:
         pooled = pooled.permute(0, 1, 4, 2, 3).contiguous()
     return pooled
+
+
+def roi_align_planes_plain(planes: torch.Tensor, boxes: torch.Tensor,
+                           plane_index: torch.Tensor, stride: int,
+                           output_size: int, sampling_ratio: int = 2
+                           ) -> torch.Tensor:
+    """Plain-torch single-level RoIAlign of one plane per RoI: ``[P, H, W]``
+    planes at ``stride`` canvas px a cell, ``[N, 4]`` boxes and the ``[N]``
+    index of each box's plane -> ``[N, out, out]`` float32 (aligned=False,
+    the sampling of :func:`batched_roi_align_plain`)."""
+    p, hgt, wid = planes.shape
+    dev = boxes.device
+    out, ratio = output_size, sampling_ratio
+    flat = planes.float().reshape(-1)
+    base = (plane_index.long() * (hgt * wid)).reshape(-1, 1, 1)  # [N, 1, 1]
+    ys, xs = _sample_coords(boxes, 1.0 / float(stride), out, ratio)
+    ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(
+        ys, torch.tensor(hgt, device=dev))
+    xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(
+        xs, torch.tensor(wid, device=dev))
+
+    def at(yi, xi):
+        return flat[base + yi[:, :, None] * wid + xi[:, None, :]]  # [N, n, n]
+
+    wy_lo_, wy_hi_ = wy_lo[:, :, None], wy_hi[:, :, None]
+    wx_lo_, wx_hi_ = wx_lo[:, None, :], wx_hi[:, None, :]
+    val = (at(ylo, xlo) * wy_lo_ * wx_lo_ + at(ylo, xhi) * wy_lo_ * wx_hi_
+           + at(yhi, xlo) * wy_hi_ * wx_lo_ + at(yhi, xhi) * wy_hi_ * wx_hi_)
+    val = val * (y_in[:, :, None] & x_in[:, None, :])
+    return val.reshape(-1, out, ratio, out, ratio).mean(dim=(2, 4))
 
 
 class _LevelTable(ctypes.Structure):
