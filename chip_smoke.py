@@ -35,7 +35,8 @@ Phases, one JSON line each:
    same weights and draws, six seeds, TF32 off: losses, gradients and
    updated parameters must agree, and the ReLU inputs whose sign differs
    between runs are counted; then the same for a small Mask R-CNN
-   (``mask_train_reference``), whose K3 also runs at 14;
+   (``mask_train_reference``) and Keypoint R-CNN
+   (``keypoint_train_reference``), whose K3 also runs at 14;
 7. train: the same detector trained at the ``TrainConfig`` defaults (batch
    2, SGD, miso augmentation) on seeded synthetic batches, 3 warm-up and 20
    timed steps; every loss finite and NMS, RoIAlign forward and RoIAlign
@@ -90,6 +91,25 @@ Phases, one JSON line each:
    (polygons counted), and one ``DetectionServer`` batch.  One
    mask training step's K2 and K3 calls at 14 and one eval forward's K2
    call at 14 are captured.
+12. keypoint: Keypoint R-CNN ResNet-50-FPN (``ModelConfig(with_keypoints=
+   True)``: 17 keypoints, a 512-channel head, 2 classes, the COCO flip
+   permutation).  ``keypoint_reference`` and ``keypoint_train_reference``:
+   phases 4 and 6 for a keypoint model (heatmap logits, and keypoints on
+   clear peaks).  ``keypoint_train``: phase 7 on the train cell's batches,
+   17 keypoints a gt, 3 warm-up and 10 timed steps, then 3 with
+   ``keypoint_roi_expand`` 1.3; per step K1 once, K2 twice (7 and 14), K3
+   twice; ``keypoint_train_breakdown``: the parts and the keypoint
+   branch's (RoIAlign at 14, head, loss, backward).  ``keypoint_eval``:
+   the eval forward at batch 4, every detection slot filled, stage by
+   stage with the decode; K1 twice, K2 twice.  ``keypoint_driver``:
+   ``train(with_keypoints=True, num_keypoints=5)`` at
+   ``keypoint_roi_expand`` 1.3 on 24 in-memory images whose boxes carry
+   their centre and four axis extremes, 2 epochs, ``evaluate_model``
+   (bbox and keypoints), ``infer`` (keypoints attached) and one
+   ``DetectionServer`` batch.  One keypoint training step's K2 and K3
+   calls at 14, at each expansion, and one eval forward's K2 call at 14
+   are captured; the share of their RoIs that reach past the canvas is
+   printed, and must be above 0 at 1.3.
 
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
@@ -97,11 +117,11 @@ postprocess calls, one training step's call, one batch of
 the CLI's model, captured after the timed runs): as
 the path calls it and in score order, against the plain version, twice,
 with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
-batches and on the mask calls at 14 against its float32 plain version,
-twice, with times; and K3 on the mask step's gradient at 14 against its
-float32 plain backward, on the gradient scaled to unit RMS and
-relative to the largest wanted value, with two wrong results (zeros, a
-one-row shift) that must fail.  Then the
+batches and on the mask and keypoint calls at 14 against its float32
+plain version, twice, with times; and K3 on the mask and keypoint steps'
+gradients at 14 against its float32 plain backward, on the gradient
+scaled to unit RMS and relative to the largest wanted value, with two
+wrong results (zeros, a one-row shift) that must fail.  Then the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failure exits non-zero before that line.  Without a CUDA device,
 or without the ``podtpu_torch`` package beside it, the script fails.
@@ -384,6 +404,16 @@ def capture_roi_align(run, limit=None):
     return calls
 
 
+def crossing_share(boxes, canvas_hw):
+    """Share of the ``[B, K, 4]`` boxes of positive area that reach past
+    the ``(H, W)`` canvas on some side."""
+    h, w = canvas_hw
+    real = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+    out = ((boxes[..., 0] < 0) | (boxes[..., 1] < 0) | (boxes[..., 2] > w)
+           | (boxes[..., 3] > h)) & real
+    return float(out.sum()) / max(int(real.sum()), 1)
+
+
 def check_roi_align_main_path(torch, roi_align, captured):
     """K2 on the inputs the main paths gave it, called as the path calls
     it, against the float32 plain run on the same inputs (atol 2e-2, rtol
@@ -415,6 +445,9 @@ def check_roi_align_main_path(torch, roi_align, captured):
                            f"_k{boxes.shape[1]}_{str(levels[0].dtype)[6:]}",
                    "shape": list(got.shape), "max_abs_err": err,
                    "want_max_abs": float(want.abs().max()),
+                   "rois_crossing_canvas": crossing_share(boxes, (
+                       levels[0].shape[1] * strides[0],
+                       levels[0].shape[2] * strides[0])),
                    "within_tolerance": ok, "equal_bits_twice": same,
                    "kernel_ms": ms, "plain_ms": plain_ms,
                    "bound_ms": max(t_bytes, t_ops) * 1e3, "bytes": nbytes,
@@ -791,13 +824,43 @@ def check_roi_align_bwd(torch, roi_align, dev):
 
 # -- phase 4: small float32 model on the card vs the CPU ---------------------
 
-def check_reference(torch, dev, with_mask=False):
-    """A small float32 model (Mask R-CNN with ``with_mask``) on the card
+# The heads each model adds to Faster R-CNN, by the name the phases use.
+# A keypoint model flips its left and right joints as ``train()`` makes it
+# do for the COCO skeleton (a chiral skeleton: no vertical flip).
+MODELS = ("faster", "mask", "keypoint")
+
+
+def model_kwargs(model):
+    """``ModelConfig`` arguments of ``model``, one of ``MODELS``."""
+    from podtpu_torch.core.config import COCO_17_HFLIP_INDS
+
+    return {"faster": {}, "mask": dict(with_mask=True),
+            "keypoint": dict(with_keypoints=True,
+                             keypoint_hflip_inds=COCO_17_HFLIP_INDS)}[model]
+
+
+def phase_name(model, name):
+    return name if model == "faster" else f"{model}_{name}"
+
+
+def peak_margins(torch, logits):
+    """``[..., K]`` top-two margins of ``[..., K, H, W]`` heatmap logits."""
+    top = logits.flatten(-2).topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def check_reference(torch, dev, model="faster"):
+    """A small float32 model (``model`` one of ``MODELS``) on the card
     against the same weights on the CPU (plain versions), TF32 off: valid
     slots and labels equal, boxes within 1e-3, scores within 1e-4 and, on
     valid slots, masks within 1e-3 (six convolutions and a sigmoid after
-    the pooling, summed in another order).  Seeds whose scores nearly tie
-    are passed over: a near tie would make slot order fragile."""
+    the pooling, summed in another order).  A keypoint model's heatmap
+    logits over the CPU's detections are held within 1e-4 of their
+    largest, as the CPU tests hold the port's against JAX's, and its
+    keypoints where a heatmap's peak clears its runner-up by ten times
+    that (at least half of them): x and y within 1e-2 px, scores within
+    1e-3 relative.  Seeds whose scores nearly tie are passed over: a near
+    tie would make slot order fragile."""
     from podtpu_torch.core.config import ModelConfig
     from podtpu_torch.models.detector import init_parameters, make_detector
 
@@ -806,7 +869,7 @@ def check_reference(torch, dev, with_mask=False):
     cfg = ModelConfig(image_size=(128, 128), rpn_pre_nms_topk_test=128,
                       rpn_post_nms_topk_test=64, detections_per_image=16,
                       compute_dtype="float32", num_classes=4,
-                      with_mask=with_mask)
+                      **model_kwargs(model))
     try:
         for seed in range(SEED, SEED + 5):
             cpu = make_detector(cfg)
@@ -818,13 +881,13 @@ def check_reference(torch, dev, with_mask=False):
             with torch.inference_mode():
                 want = cpu(torch.from_numpy(img))
                 got = gpu(torch.from_numpy(img).to(dev))
-            if with_mask:
-                (want, want_m), (got, got_m) = want, got
+            if model != "faster":
+                (want, want_x), (got, got_x) = want, got
             s = want.scores[want.valid].sort().values
             if s.numel() > 1 and float(s.diff().min()) < 1e-5:
                 continue
             v = want.valid
-            rec = {"phase": "mask_reference" if with_mask else "reference",
+            rec = {"phase": phase_name(model, "reference"),
                    "seed": seed, "detections": int(v.sum()),
                    "same_valid": torch.equal(got.valid.cpu(), v),
                    "same_labels": torch.equal(got.labels.cpu(), want.labels),
@@ -832,16 +895,44 @@ def check_reference(torch, dev, with_mask=False):
                        (got.boxes.cpu() - want.boxes).abs().max()),
                    "score_max_abs_err": float(
                        (got.scores.cpu() - want.scores).abs().max())}
-            if with_mask:
-                rec.update(mask_shape=list(got_m.shape),
+            ok = True
+            if model == "mask":
+                rec.update(mask_shape=list(got_x.shape),
                            mask_max_abs_err=float(
-                               (got_m.cpu()[v] - want_m[v]).abs().max()))
+                               (got_x.cpu()[v] - want_x[v]).abs().max()))
+                ok = rec["mask_max_abs_err"] <= 1e-3
+            elif model == "keypoint":
+                x = torch.from_numpy(img)
+                with torch.inference_mode():
+                    want_l = cpu._keypoint_logits(cpu.features(x),
+                                                  want.boxes)[1]
+                    got_l = gpu._keypoint_logits(gpu.features(x.to(dev)),
+                                                 want.boxes.to(dev))[1].cpu()
+                top = float(want_l[v].abs().max())
+                clear = peak_margins(torch, want_l[v]) > 10 * 1e-4 * top
+                gk = got_x.keypoints.cpu()[v][clear]
+                wk = want_x.keypoints[v][clear]
+                rec.update(
+                    keypoint_shape=list(got_x.keypoints.shape),
+                    logit_max_abs_err_over_max=float(
+                        (got_l[v] - want_l[v]).abs().max()) / top,
+                    keypoints_held=int(clear.sum()),
+                    keypoints=int(clear.numel()),
+                    keypoint_xy_max_abs_err=float(
+                        (gk[:, :2] - wk[:, :2]).abs().max()) if len(gk)
+                    else None,
+                    keypoint_score_max_rel_err=float(
+                        ((gk[:, 2] - wk[:, 2]).abs() / wk[:, 2]).max())
+                    if len(gk) else None)
+                ok = (rec["logit_max_abs_err_over_max"] <= 1e-4
+                      and 0 < rec["keypoints_held"] * 2 >= rec["keypoints"]
+                      and rec["keypoint_xy_max_abs_err"] <= 1e-2
+                      and rec["keypoint_score_max_rel_err"] <= 1e-3)
             emit(rec)
-            if not (rec["same_valid"] and rec["same_labels"]
+            if not (ok and rec["same_valid"] and rec["same_labels"]
                     and rec["box_max_abs_err"] <= 1e-3
                     and rec["score_max_abs_err"] <= 1e-4
-                    and rec.get("mask_max_abs_err", 0.0) <= 1e-3
-                    and (rec["detections"] > 0 or not with_mask)):
+                    and (rec["detections"] > 0 or model == "faster")):
                 raise AssertionError("GPU detections disagree with the CPU "
                                      "reference")
             return
@@ -1132,13 +1223,21 @@ def plain_k3(torch, mcfg):
         roi_align._backward_kernel = kernel
 
 
+# Parameters whose exact gradient is 0: a constant added to a keypoint
+# heatmap leaves its softmax as it was (the upsample's weights sum to 1), so
+# the predictor's bias gets only the rounding of a sum whose terms cancel.
+# Each run's is held under 1e-6 instead of against the other's.
+ZERO_GRADIENTS = ("roi_heads.keypoint_predictor.kps_score_lowres.bias",)
+
+
 def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
-                          with_mask=False):
-    """One train step of a small float32 model (Mask R-CNN with
-    ``with_mask``: its gt hold ellipse mask targets, and K3 also carries
-    the mask head's 14x14 gradient, so a step launches it twice) on the
-    CPU (plain versions) and twice on the card, with K3 and with K3
-    swapped for its plain version; same weights, batch and draws per seed, TF32 off.  Each line
+                          model="faster"):
+    """One train step of a small float32 model (``model`` one of
+    ``MODELS``; a mask model's gt hold ellipse mask targets, a keypoint
+    model's 17 keypoints each, and K3 also carries the extra head's 14x14
+    gradient, so a step launches it twice) on the CPU (plain versions) and
+    twice on the card, with K3 and with K3 swapped for its plain version;
+    same weights, batch and draws per seed, TF32 off.  Each line
     counts the ReLU inputs whose sign differs between two runs: float32
     sums taken in another order move values near zero across it, and a
     gradient then passes in one run and not in the other.  At 128x128 a
@@ -1148,8 +1247,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     within rtol 1e-4, each gradient within 3e-2 of its norm (relative L2)
     and 1.5e-1 of its largest entry, updated parameters within 2.5e-5.
     The two card runs share their forward, so K3 against its plain
-    version is held to LIMITS_K3_VS_PLAIN.  The mask model is held to the
-    same limits."""
+    version is held to LIMITS_K3_VS_PLAIN.  The mask and keypoint models
+    are held to the same limits."""
     from podtpu_torch.core.config import Config, ModelConfig
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
@@ -1161,9 +1260,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     mcfg = ModelConfig(image_size=(128, 128), rpn_pre_nms_topk_train=128,
                        rpn_post_nms_topk_train=128, box_batch_per_image=32,
                        max_gt_boxes=8, compute_dtype="float32", num_classes=4,
-                       with_mask=with_mask)
+                       **model_kwargs(model))
     cfg = Config(model=mcfg)
-    make_batch = synthetic_mask_batch if with_mask else synthetic_batch
 
     def run(seed, batch, draws, device, swap):
         model = make_detector(mcfg)
@@ -1184,7 +1282,11 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     def compare(ref, got):
         (lc, pc, sc, _), (lg, pg, sg, k3) = ref, got
         assert len(sc) == len(sg), "ReLU calls differ in number"
+        zero = {n: pg[n][1] for n in ZERO_GRADIENTS if n in pc}
+        pc = {n: v for n, v in pc.items() if n not in zero}
         return {
+            "zero_gradient_max_abs": max(
+                [float(g.abs().max()) for g in zero.values()], default=0.0),
             "loss_max_rel_err": max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12)
                                     for k in lc),
             "grad_max_err_over_tensor_max": max(
@@ -1201,7 +1303,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
                                              for v in lg.values())}
 
     def within(r, limits):
-        return (r["loss_max_rel_err"] <= limits["loss"]
+        return (r["zero_gradient_max_abs"] <= 1e-6
+                and r["loss_max_rel_err"] <= limits["loss"]
                 and r["grad_max_rel_l2_err"][0] <= limits["grad_l2"]
                 and r["grad_max_err_over_tensor_max"][0] <= limits["grad_max"]
                 and r["param_max_abs_err"] <= limits["param"] and r["finite"])
@@ -1209,12 +1312,12 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     vs_cpu = dict(loss=1e-4, grad_l2=3e-2, grad_max=1.5e-1, param=2.5e-5)
     bad = []
     for seed in seeds:
-        batch = {k: torch.from_numpy(v) for k, v in make_batch(
-            np.random.default_rng(seed), 2, (128, 128), 8, n_gt=(1, 8),
-            side=(8, 48)).items()}
+        batch = {k: torch.from_numpy(v) for k, v in model_batch(
+            model, np.random.default_rng(seed), 2, (128, 128), 8,
+            n_gt=(1, 8), side=(8, 48)).items()}
         draws = draw_train(torch.Generator().manual_seed(seed), cfg, batch)
         cpu = run(seed, batch, draws, "cpu", False)
-        rec = {"phase": ("mask_" if with_mask else "") + "train_reference",
+        rec = {"phase": phase_name(model, "train_reference"),
                "seed": seed,
                "losses_cpu": cpu[0], "trained_tensors": len(cpu[1]),
                "relu_inputs": sum(x.numel() for x in cpu[2])}
@@ -1225,7 +1328,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
         rec["k3_vs_plain_k3"] = compare(plain, k3)
         if not (within(rec["k3"], vs_cpu) and within(rec["plain_k3"], vs_cpu)
                 and within(rec["k3_vs_plain_k3"], LIMITS_K3_VS_PLAIN)
-                and k3[3] == (2 if with_mask else 1) and plain[3] == 0):
+                and k3[3] == (1 if model == "faster" else 2)
+                and plain[3] == 0):
             bad.append(seed)
         emit(rec)
     torch.backends.cudnn.allow_tf32 = True
@@ -1260,19 +1364,24 @@ def train_breakdown(torch, model, optimizer, cfg, batch, gen, reps=5):
     return {p: statistics.median(v) for p, v in times.items()}
 
 
-def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
-                copy_paste_steps=3):
+def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
+                extra_steps=3):
     """Training at the ``TrainConfig`` defaults (batch 2, SGD, miso) on
-    four seeded synthetic batches of 1-30 gt boxes; with ``with_mask``,
+    four seeded synthetic batches of 1-30 gt boxes; for ``model`` "mask",
     Mask R-CNN, each gt holding an ellipse mask target at 1/8 of the
-    canvas.  ``warmup`` and ``timed`` steps: every loss finite, and per
-    step K1 once, K2 and K3 once (twice with masks: the box head at 7, the
-    mask head at 14).  Without masks the trained weights go through a
-    model directory and serve one batch; with masks ``copy_paste_steps``
-    follow under ``DataConfig.copy_paste``.  Then the step's parts
-    (``mark`` hook; with masks the mask branch's too) and a profiler
-    window.  Returns the launches, the images/s and ``replay``, which runs
-    one more step on the first batch."""
+    canvas; for "keypoint", Keypoint R-CNN at the ``ModelConfig`` defaults
+    (17 keypoints, a 512-channel head, 2 classes, the COCO flip
+    permutation), each gt of the same batches holding 17 keypoints.
+    ``warmup`` and ``timed`` steps: every loss finite, and per step K1
+    once, K2 and K3 once (twice with a mask or keypoint head: the box head
+    at 7, the other at 14).  The box model's trained weights go through a
+    model directory and serve one batch; the mask model then takes
+    ``extra_steps`` under ``DataConfig.copy_paste``, the keypoint model
+    ``extra_steps`` with ``keypoint_roi_expand`` 1.3, launches held as
+    before.  Then the step's parts (``mark`` hook; the extra head's branch
+    too) and a profiler window.  Returns the launches, the images/s and
+    ``replay``, which runs one more step on the first batch (for the
+    keypoint model also ``replay_expand``, the same at 1.3)."""
     from podtpu_torch.core.config import Config, ModelConfig
     from podtpu_torch.infer.inference import load_inference_model
     from podtpu_torch.models.detector import init_parameters, make_detector
@@ -1281,19 +1390,29 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
     from podtpu_torch.train.optim import make_optimizer
     from podtpu_torch.train.step import images_to_float, make_train_step
 
-    cfg = Config(model=ModelConfig(num_classes=4, with_mask=with_mask))
+    kps = model == "keypoint"
+    cfg = Config(model=ModelConfig(**({} if kps else dict(num_classes=4)),
+                                   **model_kwargs(model)))
     mcfg = cfg.model
-    prefix = "mask_" if with_mask else ""
+    prefix = phase_name(model, "")
+    loss_name = {"mask": "loss_mask", "keypoint": "loss_keypoint"}.get(model)
     labels = ["radiolarian", "foraminifera", "diatom"]
-    model = make_detector(mcfg)
-    init_parameters(model, torch.Generator().manual_seed(SEED))
-    model = model.to(memory_format=torch.channels_last)
-    optimizer = make_optimizer(cfg.train, model)
-    step = make_train_step(model, optimizer, cfg, device=dev)
+    net = make_detector(mcfg)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
+    net = net.to(memory_format=torch.channels_last)
+    optimizer = make_optimizer(cfg.train, net)
+    step = make_train_step(net, optimizer, cfg, device=dev)
     rng = np.random.default_rng(SEED)
-    make_batch = synthetic_mask_batch if with_mask else synthetic_batch
-    batches = [make_batch(rng, cfg.train.batch_size, mcfg.image_size,
-                          mcfg.max_gt_boxes) for _ in range(4)]
+    batches = [synthetic_batch(rng, cfg.train.batch_size, mcfg.image_size,
+                               mcfg.max_gt_boxes) for _ in range(4)]
+    if model == "mask":
+        batches = [dict(b, masks=ellipse_masks(b["boxes"], b["valid"],
+                                               mcfg.image_size))
+                   for b in batches]
+    elif kps:  # one foreground class; keypoints from a stream of their own
+        kp_rng = np.random.default_rng(SEED + 15)
+        batches = [with_keypoints(dict(b, labels=b["valid"].astype(
+            np.int32)), kp_rng, mcfg.num_keypoints) for b in batches]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     lr = cfg.train.lr
     t0 = time.perf_counter()
@@ -1301,33 +1420,38 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
         m = step(batches[i % len(batches)], lr, generator=gen)
         assert all(np.isfinite(float(v)) for v in m.values()), m
     warm_s = time.perf_counter() - t0
-    per_step = {"nms": 1, "roi_align_fwd": 1 + with_mask,
-                "roi_align_bwd": 1 + with_mask}
+    per_step = {"nms": 1, "roi_align_fwd": 1 + (model != "faster"),
+                "roi_align_bwd": 1 + (model != "faster")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     step_s, losses = [], []
-    t_all = time.perf_counter()
-    for i in range(timed):
+
+    def held_step(run, i):
+        """One step: its losses, all finite, and its launches, as
+        ``per_step`` says."""
         before = {k: _build.launches[k] for k in per_step}
-        t0 = time.perf_counter()
-        m = step(batches[i % len(batches)], lr, generator=gen)
-        vals = {k: float(v) for k, v in m.items()}  # waits for the step
-        step_s.append(time.perf_counter() - t0)
-        losses.append(vals)
+        vals = {k: float(v) for k, v in run(batches[i % len(batches)], lr,
+                                            generator=gen).items()}
         if not all(np.isfinite(v) for v in vals.values()) or (
-                with_mask and "loss_mask" not in vals):
+                loss_name and loss_name not in vals):
             raise AssertionError(f"{prefix}train step {i}: losses {vals}")
         got = {k: _build.launches[k] - before[k] for k in per_step}
         if got != per_step:
             raise AssertionError(f"{prefix}train step {i}: launches {got}, "
                                  f"expected {per_step}")
+        return vals
+
+    t_all = time.perf_counter()
+    for i in range(timed):
+        t0 = time.perf_counter()
+        losses.append(held_step(step, i))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
     wall = time.perf_counter() - t_all
     launches = {k: _build.launches[k] for k in per_step}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lat = sorted(step_s)
-    rec = {"phase": prefix + "train",
-           "model": ("mask" if with_mask else "faster") + "_rcnn_resnet50_fpn",
+    rec = {"phase": prefix + "train", "model": f"{model}_rcnn_resnet50_fpn",
            "image_size": list(mcfg.image_size),
            "compute_dtype": mcfg.compute_dtype,
            "batch_size": cfg.train.batch_size,
@@ -1344,25 +1468,47 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
            "launches_per_step": {k: v / timed for k, v in launches.items()},
            "card": card}
 
-    if with_mask:
+    out = {}
+    if model == "mask":
         cp_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, copy_paste=True))
-        cp_step = make_train_step(model, optimizer, cp_cfg, device=dev)
-        cp_losses = []
-        for i in range(copy_paste_steps):
-            m = cp_step(batches[i % len(batches)], lr, generator=gen)
-            cp_losses.append({k: float(v) for k, v in m.items()})
-            if not all(np.isfinite(v) for v in cp_losses[-1].values()):
-                raise AssertionError(f"copy-paste step {i}: {cp_losses[-1]}")
+        cp_step = make_train_step(net, optimizer, cp_cfg, device=dev)
         rec.update(mask_pool_size=mcfg.mask_pool_size,
                    mask_resolution=mcfg.mask_resolution,
                    mask_targets=list(batches[0]["masks"].shape[2:]),
-                   copy_paste_steps=copy_paste_steps,
-                   copy_paste_losses=cp_losses)
+                   copy_paste_steps=extra_steps,
+                   copy_paste_losses=[held_step(cp_step, i)
+                                      for i in range(extra_steps)])
+    elif kps:
+        # The same model with its keypoint RoIs expanded by 1.3.
+        ex_cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            mcfg, keypoint_roi_expand=1.3))
+        net.cfg = ex_cfg.model
+        ex_step = make_train_step(net, optimizer, ex_cfg, device=dev)
+        rec.update(num_keypoints=mcfg.num_keypoints,
+                   keypoint_head_channels=mcfg.keypoint_head_channels,
+                   keypoint_pool_size=mcfg.keypoint_pool_size,
+                   keypoint_resolution=mcfg.keypoint_resolution,
+                   keypoint_hflip_inds=list(mcfg.keypoint_hflip_inds),
+                   visible_keypoints=[int((b["keypoints"][..., 2] > 0).sum())
+                                      for b in batches],
+                   expand_steps=extra_steps,
+                   expand_losses=[held_step(ex_step, i)
+                                  for i in range(extra_steps)])
+        net.cfg = mcfg
+
+        def replay_expand():
+            net.cfg = ex_cfg.model
+            try:
+                return ex_step(batches[0], lr, generator=gen)
+            finally:
+                net.cfg = mcfg
+
+        out["replay_expand"] = replay_expand
     else:
         # The trained weights as a model directory, served one batch.
         with tempfile.TemporaryDirectory() as model_dir:
-            save_model(model_dir, model, mcfg, labels)
+            save_model(model_dir, net, mcfg, labels)
             save_labels(model_dir, labels)
             forward, served, _, got_labels = load_inference_model(
                 model_dir, device=dev)
@@ -1374,7 +1520,7 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
         assert bool(torch.isfinite(det.boxes).all()) and \
             bool(torch.isfinite(det.scores).all())
         same = all(torch.equal(a, b) for a, b in zip(
-            served.state_dict().values(), model.state_dict().values()))
+            served.state_dict().values(), net.state_dict().values()))
         if not same:
             raise AssertionError("the served model's weights differ from "
                                  "the trained ones")
@@ -1382,13 +1528,13 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
         del served, forward, det
     emit(rec)
 
-    parts = train_breakdown(torch, model, optimizer, cfg, batches[0], gen)
-    if with_mask:
+    parts = train_breakdown(torch, net, optimizer, cfg, batches[0], gen)
+    if model != "faster":
         dev_batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in batches[0].items()}
-        parts.update(mask_branch_ms(torch, model,
-                                    images_to_float(dev_batch["image"]),
-                                    dev_batch, cfg))
+        parts.update(branch_ms(torch, net, model,
+                               images_to_float(dev_batch["image"]),
+                               dev_batch, cfg))
 
     def replay():
         return step(batches[0], lr, generator=gen)
@@ -1397,8 +1543,8 @@ def train_slice(torch, card, dev, with_mask=False, warmup=3, timed=20,
     emit({"phase": prefix + "train_breakdown",
           "batch_size": cfg.train.batch_size, "parts_ms": parts,
           "profile": prof, "card": card})
-    return {"launches": launches, "images_per_s": rec["images_per_s"],
-            "replay": replay}
+    return dict(out, launches=launches, images_per_s=rec["images_per_s"],
+                replay=replay)
 
 
 # -- phases 8 and 9: the training driver and batch inference -----------------
@@ -1463,7 +1609,8 @@ def driver_hooks(torch, driver, rec):
         last.update(eval_start=t0, eval_end=time.perf_counter(),
                     eval_batches=len(loader),
                     eval_images=len(loader.indices), stats=list(stats),
-                    segm_stats=getattr(ev, "segm_stats", None))
+                    segm_stats=getattr(ev, "segm_stats", None),
+                    keypoints_stats=getattr(ev, "keypoints_stats", None))
         return ev, stats
 
     def make_scheduler(*args, **kwargs):
@@ -2095,6 +2242,30 @@ def synthetic_mask_batch(rng, b, size, max_gt, stride=8, **kw):
     return batch
 
 
+def with_keypoints(batch, rng, k=17):
+    """``batch`` with ``keypoints [B, G, k, 3]`` float32: points drawn
+    uniformly inside each valid gt box, a fifth of them invisible (v 0),
+    the rest visible (v 2)."""
+    boxes, valid = batch["boxes"], batch["valid"]
+    u = rng.uniform(0, 1, boxes.shape[:2] + (k, 2))
+    xy = boxes[..., None, :2] + u * (boxes[..., None, 2:]
+                                     - boxes[..., None, :2])
+    vis = np.where(rng.uniform(size=u.shape[:3]) < 0.2, 0.0, 2.0)
+    kps = np.concatenate([xy, vis[..., None]], -1).astype(np.float32)
+    kps[~valid] = 0.0
+    return dict(batch, keypoints=kps)
+
+
+def model_batch(model, rng, b, size, max_gt, **kw):
+    """``synthetic_batch`` with the targets of ``model``'s extra head: an
+    ellipse mask per gt, or 17 keypoints (drawn after the batch, so the
+    boxes are those of the same ``rng`` without them)."""
+    if model == "mask":
+        return synthetic_mask_batch(rng, b, size, max_gt, **kw)
+    batch = synthetic_batch(rng, b, size, max_gt, **kw)
+    return with_keypoints(batch, rng) if model == "keypoint" else batch
+
+
 def capture_roi_align_bwd(run, output_size, limit=1):
     """The inputs of the first ``limit`` K3 calls at ``output_size`` that
     ``run()`` makes (the backward of the RoIAlign autograd function), as
@@ -2174,6 +2345,8 @@ def check_roi_align_bwd_main_path(torch, roi_align, captured):
                    "case": f"{path}_call{k}_out{out}_b{boxes.shape[0]}"
                            f"_k{boxes.shape[1]}_{str(dtype)[6:]}",
                    "grad_shape": list(g.shape), "channels_first": cf,
+                   "rois_crossing_canvas": crossing_share(boxes, (
+                       shapes[0][1] * strides[0], shapes[0][2] * strides[0])),
                    "grad_rms": rms, "tolerance": tol,
                    "max_abs_err": max_err(got, want),
                    "within_tolerance": close(got, want),
@@ -2205,11 +2378,13 @@ def check_roi_align_bwd_main_path(torch, roi_align, captured):
     return recs
 
 
-def mask_branch_ms(torch, model, images, batch, cfg):
-    """CUDA-event milliseconds (median of 10) of the mask branch of a train
-    step, each part fed the previous part's outputs: RoIAlign at the mask
-    pool size over the sampled RoIs (K2), the mask head, the loss (target
-    crop and BCE) and the branch's backward (the head's and K3's)."""
+def branch_ms(torch, net, model, images, batch, cfg):
+    """CUDA-event milliseconds (median of 10) of the extra head's branch of
+    a train step (``model`` "mask" or "keypoint"), each part fed the
+    previous part's outputs: RoIAlign at the head's pool size over the
+    sampled RoIs (K2; a keypoint model's expanded), the head, the loss
+    (mask: target crop and BCE; keypoint: heatmap cross-entropy) and the
+    branch's backward (the head's and K3's)."""
     from podtpu_torch.models import rpn as rpn_lib
     from podtpu_torch.models import roi_heads as rh
     from podtpu_torch.models.detector import draw_model
@@ -2217,9 +2392,9 @@ def mask_branch_ms(torch, model, images, batch, cfg):
     mcfg = cfg.model
     gen = torch.Generator(device=images.device).manual_seed(SEED)
     with torch.no_grad():
-        pyramid = model.features(images)
-        logits, deltas = model.rpn.head(pyramid)
-        props = rpn_lib.select_proposals(logits, deltas, model.rpn.anchors(),
+        pyramid = net.features(images)
+        logits, deltas = net.rpn.head(pyramid)
+        props = rpn_lib.select_proposals(logits, deltas, net.rpn.anchors(),
                                          mcfg, train=True)
         draws = draw_model(gen, mcfg, images.shape[0],
                            batch["boxes"].shape[1])
@@ -2227,69 +2402,86 @@ def mask_branch_ms(torch, model, images, batch, cfg):
                                  batch["labels"], batch["valid"], mcfg,
                                  draws.roi_pos, draws.roi_neg)
     pyramid = [f.detach().requires_grad_() for f in pyramid]
+    if model == "mask":
+        rois, size, run_head = (sampled.boxes, mcfg.mask_pool_size,
+                                net.roi_heads.mask_logits)
+
+        def loss_of(head_out):
+            return rh.mask_loss(head_out, sampled, batch["masks"], mcfg)
+    else:
+        rois = rh.expand_rois(sampled.boxes, mcfg.keypoint_roi_expand)
+        size, run_head = (mcfg.keypoint_pool_size,
+                          net.roi_heads.keypoint_logits)
+
+        def loss_of(head_out):
+            return rh.keypoint_loss(head_out, rois, sampled,
+                                    batch["keypoints"])
 
     def pool():
-        return rh.pool_rois_batched(pyramid, sampled.boxes, mcfg,
-                                    pool_size=mcfg.mask_pool_size,
+        return rh.pool_rois_batched(pyramid, rois, mcfg, pool_size=size,
                                     channels_last=True)
 
     def head(pooled):
         b, k = pooled.shape[:2]
-        out = model.roi_heads.mask_logits(pooled.reshape(b * k,
-                                                         *pooled.shape[2:]))
+        out = run_head(pooled.reshape(b * k, *pooled.shape[2:]))
         return out.reshape(b, k, *out.shape[1:])
 
     with torch.no_grad():
         pooled = pool()
-        mask_logits = head(pooled)
+        head_out = head(pooled)
 
     def branch():
-        loss = rh.mask_loss(head(pool()), sampled, batch["masks"], mcfg)
-        loss.backward()
+        loss_of(head(pool())).backward()
 
     with torch.no_grad():
-        parts = {"mask_roi_align": time_ms(pool, reps=10),
-                 "mask_head": time_ms(lambda: head(pooled), reps=10),
-                 "mask_loss": time_ms(lambda: rh.mask_loss(
-                     mask_logits, sampled, batch["masks"], mcfg), reps=10)}
+        parts = {f"{model}_roi_align": time_ms(pool, reps=10),
+                 f"{model}_head": time_ms(lambda: head(pooled), reps=10),
+                 f"{model}_loss": time_ms(lambda: loss_of(head_out),
+                                          reps=10)}
     whole = time_ms(branch, reps=10)
-    parts["mask_backward"] = whole - sum(parts.values())
-    parts["mask_branch_forward_backward"] = whole
-    model.zero_grad(set_to_none=True)
+    parts[f"{model}_backward"] = whole - sum(parts.values())
+    parts[f"{model}_branch_forward_backward"] = whole
+    net.zero_grad(set_to_none=True)
     return parts
 
 
-def capture_mask_step(run, pool_size, captured):
-    """The inputs of the K2 and K3 calls at ``pool_size`` that one mask
-    training step (``run()``) makes, appended to ``captured`` under
-    ``mask_train``; exactly one of each."""
+def capture_step(run, pool_size, captured, path):
+    """The inputs of the K2 and K3 calls at ``pool_size`` that one training
+    step (``run()``) of a mask or keypoint model makes, appended to
+    ``captured`` under ``path``; exactly one of each."""
     k3_calls = []
     k2_calls = capture_roi_align(lambda: k3_calls.extend(
         capture_roi_align_bwd(run, pool_size)))
     k2_calls = [c for c in k2_calls if c[3].get("output_size") == pool_size]
     if len(k2_calls) != 1 or len(k3_calls) != 1:
-        raise AssertionError(f"one mask step made {len(k2_calls)} K2 and "
+        raise AssertionError(f"one {path} step made {len(k2_calls)} K2 and "
                              f"{len(k3_calls)} K3 calls at {pool_size}, "
                              "expected 1 and 1")
-    captured["k2"].append(("mask_train", k2_calls))
-    captured["k3"].append(("mask_train", k3_calls))
+    captured["k2"].append((path, k2_calls))
+    captured["k3"].append((path, k3_calls))
 
 
-def mask_eval_slice(torch, card, dev, captured, config=None, b=4):
-    """The eval forward of a mask model with seeded random weights (as the
-    serving slice's: every one of the ``detections_per_image`` slots holds
-    a detection) at batch ``b``: each stage timed with CUDA events (median
-    of 10), the mask stages among them, a profiler window, the launches of
-    one forward, and the inputs of its K2 call at the mask pool size."""
+def head_eval_slice(torch, card, dev, captured, model="mask", config=None,
+                    b=4):
+    """The eval forward of a mask or keypoint model (``model``) with seeded
+    random weights (as the serving slice's: every one of the
+    ``detections_per_image`` slots holds a detection) at batch ``b``: each
+    stage timed with CUDA events (median of 10), the extra head's stages
+    among them (a keypoint model's decode too), a profiler window, the
+    launches of one forward (K1 twice, K2 twice), and the inputs of its K2
+    call at the head's pool size."""
     from podtpu_torch.core.config import ModelConfig
     from podtpu_torch.models import roi_heads as rh
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
 
-    cfg = config or ModelConfig(num_classes=4, with_mask=True)
-    model = make_detector(cfg)
-    init_parameters(model, torch.Generator().manual_seed(SEED))
-    model = model.to(dev, memory_format=torch.channels_last).eval()
+    kps = model == "keypoint"
+    cfg = config or ModelConfig(**({} if kps else dict(num_classes=4)),
+                                **model_kwargs(model))
+    size = cfg.keypoint_pool_size if kps else cfg.mask_pool_size
+    net = make_detector(cfg)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
+    net = net.to(dev, memory_format=torch.channels_last).eval()
     rng = np.random.default_rng(SEED + 12)
     images = [rng.integers(0, 256, (*cfg.image_size, 3), dtype=np.uint8)
               for _ in range(b)]
@@ -2297,56 +2489,75 @@ def mask_eval_slice(torch, card, dev, captured, config=None, b=4):
 
     def forward():
         with torch.inference_mode():
-            return model(x)
+            return net(x)
 
-    det, masks = forward()
+    forward()
     torch.cuda.synchronize()
     _build.reset_launches()
-    det, masks = forward()
+    det, extra = forward()
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    stages = stage_breakdown(torch, model, images)
+    stages = stage_breakdown(torch, net, images)
+    rois = rh.expand_rois(det.boxes, cfg.keypoint_roi_expand) if kps \
+        else det.boxes
+    run_head = net.roi_heads.keypoint_logits if kps \
+        else net.roi_heads.mask_logits
     with torch.inference_mode():
-        pyramid = model.features(x)
-        pooled = rh.pool_rois_batched(pyramid, det.boxes, cfg,
-                                      pool_size=cfg.mask_pool_size,
+        pyramid = net.features(x)
+        pooled = rh.pool_rois_batched(pyramid, rois, cfg, pool_size=size,
                                       channels_last=True)
         flat = pooled.reshape(-1, *pooled.shape[2:])
-        stages["mask_roi_align"] = time_ms(lambda: rh.pool_rois_batched(
-            pyramid, det.boxes, cfg, pool_size=cfg.mask_pool_size,
-            channels_last=True), reps=10)
-        stages["mask_head"] = time_ms(
-            lambda: model.roi_heads.mask_logits(flat), reps=10)
+        stages[f"{model}_roi_align"] = time_ms(lambda: rh.pool_rois_batched(
+            pyramid, rois, cfg, pool_size=size, channels_last=True), reps=10)
+        stages[f"{model}_head"] = time_ms(lambda: run_head(flat), reps=10)
+        if kps:
+            logits = run_head(flat)
+            stages["keypoint_decode"] = time_ms(
+                lambda: rh.heatmaps_to_keypoints(logits, rois.reshape(-1, 4)),
+                reps=10)
+            del logits
     prof = device_profile(torch, forward)
     calls = [c for c in capture_roi_align(forward)
-             if c[3].get("output_size") == cfg.mask_pool_size]
+             if c[3].get("output_size") == size]
     valid = det.valid
-    rec = {"phase": "mask_eval", "model": "mask_rcnn_resnet50_fpn",
+    out = extra.keypoints if kps else extra
+    rec = {"phase": f"{model}_eval", "model": f"{model}_rcnn_resnet50_fpn",
            "batch_size": b, "image_size": list(cfg.image_size),
-           "detections": int(valid.sum()), "mask_shape": list(masks.shape),
-           "masks_finite": bool(torch.isfinite(masks).all()),
-           "mask_pixels_over_half": float((masks[valid] > 0.5).float()
-                                          .mean()) if valid.any() else None,
+           "detections": int(valid.sum()), "output_shape": list(out.shape),
+           "output_finite": bool(torch.isfinite(out).all()),
            "stages_ms": stages, "launches": launches, "profile": prof,
            "card": card}
+    if kps:
+        want = (b, cfg.detections_per_image, cfg.num_keypoints, 3)
+        rec["keypoint_score_median"] = float(out[..., 2][valid].median()) \
+            if valid.any() else None
+    else:
+        want = (b, cfg.detections_per_image, cfg.mask_resolution,
+                cfg.mask_resolution)
+        rec["mask_pixels_over_half"] = float((out[valid] > 0.5).float()
+                                             .mean()) if valid.any() else None
     emit(rec)
-    if not rec["masks_finite"] or tuple(masks.shape) != (
-            b, cfg.detections_per_image, cfg.mask_resolution,
-            cfg.mask_resolution):
-        raise AssertionError(f"mask eval: masks {tuple(masks.shape)}, "
-                             f"finite {rec['masks_finite']}")
-    if launches.get("roi_align_fwd", 0) != 2 or len(calls) != 1:
-        raise AssertionError(f"mask eval: launches {launches}, "
-                             f"{len(calls)} K2 calls at the mask size")
-    captured["k2"].append(("mask_eval", calls))
+    if not rec["output_finite"] or tuple(out.shape) != want:
+        raise AssertionError(f"{model} eval: output {tuple(out.shape)}, "
+                             f"finite {rec['output_finite']}")
+    if launches.get("roi_align_fwd", 0) != 2 or launches.get("nms", 0) != 2 \
+            or len(calls) != 1:
+        raise AssertionError(f"{model} eval: launches {launches}, "
+                             f"{len(calls)} K2 calls at {size}")
+    if kps and rec["detections"] != b * cfg.detections_per_image:
+        raise AssertionError(f"keypoint eval: {rec['detections']} "
+                             "detections, expected every slot")
+    captured["k2"].append((f"{model}_eval", calls))
     return launches
 
 
-def polygon_images(rng, n, size, with_gt=True, polygons=True):
+def shape_images(rng, n, size, with_gt=True, kind="polygons"):
     """``n`` seeded canvases, path -> uint8 image, and their metadata: dark
     noise with 1-30 filled ellipses of 16-256 px, a brightness per label;
-    each annotated (``with_gt``) by its ellipse as a 24-point polygon, or
-    by its box when ``polygons`` is False."""
+    each annotated (``with_gt``) by its ellipse as a 24-point polygon
+    (``kind`` "polygons"), by its box ("rectangles"), or by its box with
+    five keypoints, the centre and the four axis extremes one pixel inside
+    the box, as ``tests/synthetic.py`` draws them ("keypoints")."""
     from podtpu_torch.data import ImageMetadata, RectangleAnnotation
     from podtpu_torch.data.annotation import PolygonAnnotation
 
@@ -2356,8 +2567,9 @@ def polygon_images(rng, n, size, with_gt=True, polygons=True):
     a = np.linspace(0, 2 * np.pi, 24, endpoint=False)
     for i in range(n):
         img = (batch["image"][i] // 3).copy()
-        meta = ImageMetadata(f"mask_{'gt' if with_gt else 'infer'}_{i:03d}"
-                             ".png", "/in-memory", dataset_id=1, frame_id=i)
+        meta = ImageMetadata(f"{kind}_{'gt' if with_gt else 'infer'}_"
+                             f"{i:03d}.png", "/in-memory", dataset_id=1,
+                             frame_id=i)
         valid = batch["valid"][i]
         for j in np.flatnonzero(valid):
             x1, y1, x2, y2 = (float(v) for v in batch["boxes"][i, j])
@@ -2365,31 +2577,41 @@ def polygon_images(rng, n, size, with_gt=True, polygons=True):
             img[fill[i, j] > 0] = 120 + 40 * lab
             if not with_gt:
                 continue
-            if polygons:
-                cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            if kind == "polygons":
                 meta.add_annotation(PolygonAnnotation(
                     list(cx + (x2 - x1) / 2 * np.cos(a)),
                     list(cy + (y2 - y1) / 2 * np.sin(a)),
                     DRIVER_LABELS[lab - 1]))
             else:
+                kps = [(cx, cy, 2.0), (x1 + 1, cy, 2.0), (x2 - 1, cy, 2.0),
+                       (cx, y1 + 1, 2.0), (cx, y2 - 1, 2.0)] \
+                    if kind == "keypoints" else None
                 meta.add_annotation(RectangleAnnotation(
-                    x1, y1, x2 - x1, y2 - y1, DRIVER_LABELS[lab - 1]))
+                    x1, y1, x2 - x1, y2 - y1, DRIVER_LABELS[lab - 1],
+                    keypoints=kps))
         images[meta.full_path] = img
         metas.append(meta)
     return images, metas
 
 
-def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
-                      n_images=24, n_infer=8):
-    """``train(with_mask=True)`` at the ``Config()`` defaults on a seeded
-    in-memory project of ellipse polygons (rectangles where Pillow, which
-    rasterizes them, does not import) for 2 epochs; ``evaluate_model`` on
-    its 4 test images with bbox and segm stats; ``infer`` on ``n_infer``
-    unlabelled images at threshold 0.5, then at the median of the images'
-    best scores, which keeps a detection in at least half of them (the
-    host traces each kept mask: about 0.2 s a detection at 1024^2); and
-    one batch of the ``DetectionServer`` at that score, of the four
-    images with the best scores.  Returns the launches by path."""
+def head_driver_phase(torch, card, dev, model="mask", config=None,
+                      size=(1024, 1024), n_images=24, n_infer=8):
+    """The training driver of a mask or keypoint model (``model``) at the
+    ``Config()`` defaults on a seeded in-memory project for 2 epochs:
+    ``train(with_mask=True)`` on ellipse polygons (rectangles where Pillow,
+    which rasterizes them, does not import), or ``train(with_keypoints=
+    True, num_keypoints=5)`` with ``keypoint_roi_expand`` 1.3 on boxes
+    carrying their centre and four axis extremes.  Then ``evaluate_model``
+    on its 4 test images with bbox and segm or keypoints stats; ``infer``
+    on ``n_infer`` unlabelled images at threshold 0.5, then at the median
+    of the images' best scores, which keeps a detection in at least half
+    of them (the host traces each kept mask: about 0.2 s a detection at
+    1024^2; a keypoint model attaches each detection's keypoints); and one
+    batch of the ``DetectionServer`` at that score, of the four images with
+    the best scores (polygons for a mask model, boxes alone for a keypoint
+    model).  Returns the launches by path."""
+    from podtpu_torch.core.config import Config
     from podtpu_torch.data import Project, imageio
     from podtpu_torch.data.annotation import PolygonAnnotation
     from podtpu_torch.data.dataset import train_test_split
@@ -2397,26 +2619,36 @@ def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
     from podtpu_torch.infer.server import DetectionServer
     from podtpu_torch.train import train as driver
 
+    kps = model == "keypoint"
     pillow = importlib.util.find_spec("PIL") is not None
-    images, metas = polygon_images(np.random.default_rng(SEED + 13),
-                                   n_images, size, polygons=pillow)
-    unlabelled, infer_metas = polygon_images(
-        np.random.default_rng(SEED + 14), n_infer, size, with_gt=False)
+    kind = "keypoints" if kps else "polygons" if pillow else "rectangles"
+    images, metas = shape_images(np.random.default_rng(SEED + 13),
+                                 n_images, size, kind=kind)
+    unlabelled, infer_metas = shape_images(
+        np.random.default_rng(SEED + 14), n_infer, size, with_gt=False,
+        kind=kind)
     images.update(unlabelled)
     project, infer_project = Project(), Project()
     for m in metas:
         project.add_image(m)
     for m in infer_metas:
         infer_project.add_image(m)
-    tmp = tempfile.mkdtemp(prefix="podtpu_mask_")
+    if kps:
+        config = config or Config()
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, keypoint_roi_expand=1.3))
+        head_kw = dict(with_keypoints=True, num_keypoints=5)
+    else:
+        head_kw = dict(with_mask=True)
+    tmp = tempfile.mkdtemp(prefix=f"podtpu_{model}_")
     read_rgb = imageio.read_rgb
     imageio.read_rgb = images.__getitem__
     try:
         torch.cuda.reset_peak_memory_stats()
         model_dir, launches, rec, seconds = driven(
             torch, driver, driver.train, project, output_dir=tmp,
-            name="mask", batch_size=2, seed=0, config=config, device=dev,
-            max_epochs=2, with_mask=True)
+            name=model, batch_size=2, seed=0, config=config, device=dev,
+            max_epochs=2, **head_kw)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         _, test_idx = train_test_split(len(metas), 0.2, 1)
         test_project = Project()
@@ -2426,8 +2658,9 @@ def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
         stats, evaluated, _, eval_s = driven(
             torch, driver, driver.evaluate_model, test_project, model_dir,
             batch_size=2, output_dir=eval_dir, device=dev)
-        with open(os.path.join(eval_dir, "results_segm.txt")) as fp:
-            segm = [float(ln.rsplit("=", 1)[1]) for ln in fp]
+        head_file = "results_keypoints.txt" if kps else "results_segm.txt"
+        with open(os.path.join(eval_dir, head_file)) as fp:
+            head_stats = [float(ln.rsplit("=", 1)[1]) for ln in fp]
 
         def infer(threshold):
             return driven(torch, driver, inference.infer, infer_project,
@@ -2435,8 +2668,13 @@ def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
                           device=dev)
 
         def kinds(result):
+            """(polygons or annotations carrying keypoints, annotations)."""
             shapes = [b for im in result.image_dict.values()
                       for b in im.boxes]
+            if kps:
+                return (sum(b.keypoints is not None
+                            and len(b.keypoints) == 5 for b in shapes),
+                        len(shapes))
             return (sum(isinstance(b, PolygonAnnotation) for b in shapes),
                     len(shapes))
 
@@ -2463,51 +2701,65 @@ def mask_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
         shutil.rmtree(tmp, ignore_errors=True)
     steps = sum(e["steps"] for e in rec["epochs"])
     eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
-    polygons, shapes = kinds(result)
-    best_polygons, best_shapes = kinds(best_result)
-    served_polygons = sum("polygon" in d for r in served
-                          for d in r["detections"])
-    line = {"phase": "mask_driver", "model": "mask_rcnn_resnet50_fpn",
+    extras, shapes = kinds(result)
+    best_extras, best_shapes = kinds(best_result)
+    served_dets = [d for r in served for d in r["detections"]]
+    served_polygons = sum("polygon" in d for d in served_dets)
+    extra = "keypoints" if kps else "polygons"
+    line = {"phase": f"{model}_driver", "model": f"{model}_rcnn_resnet50_fpn",
             "image_size": list(size), "images": n_images,
-            "gt_shapes": "ellipse polygons (24 points)" if pillow else
-            "rectangles (Pillow, which rasterizes polygons, does not "
-            "import)", "batch_size": 2,
-            "epochs": epoch_lines(rec, 2), "steps": steps,
+            "gt_shapes": {"keypoints": "boxes with 5 keypoints (centre, "
+                          "axis extremes)",
+                          "polygons": "ellipse polygons (24 points)",
+                          "rectangles": "rectangles (Pillow, which "
+                          "rasterizes polygons, does not import)"}[kind],
+            "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
             "train_call_s": seconds,
             "epoch_losses": [e["loss"] for e in rec["epochs"]],
-            "eval_segm_stats": [e["segm_stats"] for e in rec["epochs"]],
+            f"eval_{'keypoints' if kps else 'segm'}_stats": [
+                e["keypoints_stats" if kps else "segm_stats"]
+                for e in rec["epochs"]],
             "evaluate_model_s": eval_s, "evaluate_model_bbox": stats,
-            "evaluate_model_segm": segm,
+            f"evaluate_model_{'keypoints' if kps else 'segm'}": head_stats,
             "infer_threshold": 0.5, "infer_s": infer_s,
-            "infer_polygons": polygons, "infer_annotations": shapes,
+            f"infer_{extra}": extras, "infer_annotations": shapes,
             "best_threshold": threshold, "best_infer_s": best_s,
-            "best_polygons": best_polygons, "best_annotations": best_shapes,
-            "served_detections": sum(len(r["detections"]) for r in served),
+            f"best_{extra}": best_extras, "best_annotations": best_shapes,
+            "served_detections": len(served_dets),
             "served_polygons": served_polygons,
             "launches": {"train": launches, "evaluate_model": evaluated,
                          "infer": infer_launches},
             "peak_memory_gib": peak, "card": card}
+    if kps:
+        line["keypoint_roi_expand"] = config.model.keypoint_roi_expand
+        line["served_with_keypoints"] = sum("keypoints" in d
+                                            for d in served_dets)
     emit(line)
     bad = []
     if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
         bad.append("a train loss is not finite")
-    if len(segm) != 12 or not all(-1 <= v <= 1 for v in segm + stats):
-        bad.append(f"stats {stats}, segm {segm}")
-    if any(e["segm_stats"] is None for e in rec["epochs"]):
-        bad.append("an epoch's eval ran no segm evaluation")
+    if len(head_stats) != 12 or not all(-1 <= v <= 1
+                                        for v in head_stats + stats):
+        bad.append(f"stats {stats}, {head_file} {head_stats}")
+    key = "keypoints_stats" if kps else "segm_stats"
+    if any(e[key] is None for e in rec["epochs"]):
+        bad.append(f"an epoch's eval ran no {key[:-6]} evaluation")
     if launches["roi_align_bwd"] != 2 * steps or launches["nms"] < (
             steps + eval_batches) or launches["roi_align_fwd"] < 2 * (
             steps + eval_batches):
         bad.append(f"train launches {launches}: expected K3 = 2 x {steps} "
                    f"steps, K1 >= {steps + eval_batches}, K2 >= twice that")
-    if not best_polygons or not served_polygons:
-        bad.append(f"{best_polygons} polygons from infer and "
-                   f"{served_polygons} from the server at the median best "
-                   "score")
+    if not best_extras or (kps and best_extras != best_shapes):
+        bad.append(f"{best_extras} of {best_shapes} annotations from infer "
+                   f"with {extra} at the median best score")
+    if not served_dets or (not kps and not served_polygons) or (
+            kps and line["served_with_keypoints"]):
+        bad.append(f"the server's {len(served_dets)} detections, "
+                   f"{served_polygons} polygons")
     if bad:
-        raise AssertionError(f"mask driver: {bad}")
-    return {"mask_driver": launches, "mask_evaluate_model": evaluated,
-            "mask_infer": infer_launches}
+        raise AssertionError(f"{model} driver: {bad}")
+    return {f"{model}_driver": launches, f"{model}_evaluate_model": evaluated,
+            f"{model}_infer": infer_launches}
 
 
 def main() -> int:
@@ -2543,13 +2795,13 @@ def main() -> int:
                     seed=SEED + 3, case="train_b2_k512_c256_bf16")
     bwd_rec = check_roi_align_bwd(torch, roi_align, "cuda")
     check_roi_align_cases(torch, roi_align, "cuda")
-    check_reference(torch, "cuda")
-    check_reference(torch, "cuda", with_mask=True)
+    for model in MODELS:
+        check_reference(torch, "cuda", model=model)
     captured = []
     serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4),
                         captured)
-    check_train_reference(torch, "cuda")
-    check_train_reference(torch, "cuda", with_mask=True)
+    for model in MODELS:
+        check_train_reference(torch, "cuda", model=model)
     train = train_slice(torch, card, "cuda")
     captured.append(("train", capture_nms(nms, train.pop("replay"))))
     tmp, model_dir, driver, (eval_nms, eval_roi) = driver_phase(
@@ -2560,21 +2812,34 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cli, (cli_nms, cli_roi) = cli_phase(torch, card, "cuda", native_built)
-    mask_captured = {"k2": [], "k3": []}
-    mask_train = train_slice(torch, card, "cuda", with_mask=True, timed=10)
-    capture_mask_step(mask_train.pop("replay"), ModelConfig().mask_pool_size,
-                      mask_captured)
-    mask_eval = mask_eval_slice(torch, card, "cuda", mask_captured)
-    mask_driver = mask_driver_phase(torch, card, "cuda")
+    head_captured = {"k2": [], "k3": []}
+    mask_train = train_slice(torch, card, "cuda", model="mask", timed=10)
+    capture_step(mask_train.pop("replay"), ModelConfig().mask_pool_size,
+                 head_captured, "mask_train")
+    mask_eval = head_eval_slice(torch, card, "cuda", head_captured, "mask")
+    mask_driver = head_driver_phase(torch, card, "cuda", "mask")
+    kp_train = train_slice(torch, card, "cuda", model="keypoint", timed=10)
+    kp_size = ModelConfig().keypoint_pool_size
+    capture_step(kp_train.pop("replay"), kp_size, head_captured,
+                 "keypoint_train")
+    capture_step(kp_train.pop("replay_expand"), kp_size, head_captured,
+                 "keypoint_train_expand")
+    kp_eval = head_eval_slice(torch, card, "cuda", head_captured, "keypoint")
+    kp_driver = head_driver_phase(torch, card, "cuda", "keypoint")
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)]
     check_nms_main_path(torch, nms, captured)
     check_roi_align_main_path(torch, roi_align, [
         ("evaluate_model", eval_roi), ("infer", infer_roi),
         ("cli_evaluate_model", cli_roi)])
-    k2_14 = check_roi_align_main_path(torch, roi_align, mask_captured["k2"])
+    k2_14 = check_roi_align_main_path(torch, roi_align, head_captured["k2"])
     k3_14 = check_roi_align_bwd_main_path(torch, roi_align,
-                                          mask_captured["k3"])
+                                          head_captured["k3"])
+    k2_14 = dict(zip((p for p, _ in head_captured["k2"]), k2_14))
+    k3_14 = dict(zip((p for p, _ in head_captured["k3"]), k3_14))
+    if not k2_14["keypoint_train_expand"]["rois_crossing_canvas"] > 0:
+        raise AssertionError("no RoI of the keypoint step at "
+                             "keypoint_roi_expand 1.3 crosses the canvas")
 
     def launches(name):
         by_path = {"serve": serve.get(name, 0),
@@ -2585,14 +2850,20 @@ def main() -> int:
                    "cli_infer": cli["cli_infer"][name],
                    "mask_train": mask_train["launches"].get(name, 0),
                    "mask_eval": mask_eval.get(name, 0),
-                   **{k: v[name] for k, v in mask_driver.items()}}
+                   **{k: v[name] for k, v in mask_driver.items()},
+                   "keypoint_train": kp_train["launches"].get(name, 0),
+                   "keypoint_eval": kp_eval.get(name, 0),
+                   **{k: v[name] for k, v in kp_driver.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 
     def at(rec, case=None):
-        return {"case": case or rec["case"], "ms": rec["kernel_ms"]
-                if "kernel_ms" in rec else rec["ms"],
-                "bound_ms": rec["bound_ms"], "max_abs_err": rec["max_abs_err"]}
+        out = {"case": case or rec["case"], "ms": rec["kernel_ms"]
+               if "kernel_ms" in rec else rec["ms"],
+               "bound_ms": rec["bound_ms"], "max_abs_err": rec["max_abs_err"]}
+        if "rois_crossing_canvas" in rec:
+            out["rois_crossing_canvas"] = rec["rois_crossing_canvas"]
+        return out
 
     kernels = [
         dict(name="nms", route="cuda", source="podtpu_torch/csrc/nms.cu",
@@ -2610,7 +2881,9 @@ def main() -> int:
              bound_by=roi_rec["bound_by"], library_ms=None,
              by_output_size={
                  "7": at(roi_rec, "serving_b4_k1000_c256_bf16"),
-                 "14": {**at(k2_14[0]), "mask_eval": at(k2_14[1])}}),
+                 "14": {**at(k2_14["mask_train"]),
+                        **{p: at(r) for p, r in k2_14.items()
+                           if p != "mask_train"}}}),
         dict(name="roi_align_bwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:226",
@@ -2619,7 +2892,9 @@ def main() -> int:
              plain_ms=bwd_rec["plain_ms"], bound_ms=bwd_rec["bound_ms"],
              bound_by=bwd_rec["bound_by"], library_ms=None,
              by_output_size={"7": at(bwd_rec, "train_b2_k512_c256_bf16"),
-                             "14": at(k3_14[0])}),
+                             "14": {**at(k3_14["mask_train"]),
+                                    **{p: at(r) for p, r in k3_14.items()
+                                       if p != "mask_train"}}}),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -160,7 +160,9 @@ def build_parser() -> argparse.ArgumentParser:
           help="Train a Mask R-CNN head on polygon annotations (rectangles "
                "train as filled boxes)")
     c.opt("--with-keypoints", flag=True,
-          help="Train a Keypoint R-CNN head (ROADMAP.md item 11)")
+          help="Train a Keypoint R-CNN head (annotations carry "
+               "keypoint triples, e.g. CVAT points shapes grouped with "
+               "their box)")
     c.opt("--num-keypoints", type=int, default=17,
           help="Keypoints per instance (COCO person skeleton = 17)")
     c.opt("--keypoint-hflip-inds",

@@ -92,7 +92,10 @@ class ModelConfig:
     ssd_neg_pos_ratio: float = 3.0
     ssd_topk_per_class: int = 400
 
-    # Mask / keypoint heads (not ported yet)
+    # Mask and keypoint heads.  ``keypoint_roi_expand`` scales each RoI
+    # about its centre before the keypoint head pools it (1.0: torchvision's
+    # head); a non-identity ``keypoint_hflip_inds`` marks a chiral skeleton,
+    # whose miso policy then never flips vertically.
     with_mask: bool = False
     mask_pool_size: int = 14
     mask_resolution: int = 28
@@ -135,6 +138,12 @@ class ModelConfig:
         if self.backbone == "mobilenet_v3_fpn":
             return (self.strides[0],)
         return tuple(self.strides)
+
+
+# Left/right joint swap of the COCO person-17 skeleton under horizontal
+# flip (nose, then eye/ear/shoulder/elbow/wrist/hip/knee/ankle L-R pairs).
+COCO_17_HFLIP_INDS = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13,
+                      16, 15)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,7 +16,10 @@ call, so a caller can replace the decoder) and :func:`fit_resize`.  OpenCV
 needs resizing, so a canvas-sized image needs no image library.  With
 ``with_masks`` each gt also gets a float32 mask target at 1/``mask_stride``
 of the canvas, rasterized from its polygon (Pillow) or filled over its
-rectangle.  Keypoint targets wait for ROADMAP.md item 11.
+rectangle.  With ``with_keypoints`` each gt gets its ``[K, 3]`` (x, y,
+visibility) keypoints in canvas coordinates, from annotations that carry
+``keypoints`` (all invisible where one carries none); a point scaled off
+the canvas becomes invisible.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ class Sample:
     original_size: Tuple[int, int]  # (h, w)
     index: int
     masks: Optional[np.ndarray] = None  # [G, H/ms, W/ms] float32 bitmaps
+    # [G, K, 3] float32 (x, y, visibility) in canvas coords; visibility 0
+    # also marks padded slots.
+    keypoints: Optional[np.ndarray] = None
     # False when the image failed to decode: the sample is a zero canvas
     # with no gt, and the loader folds it into batch_valid so training and
     # evaluation ignore it.
@@ -84,10 +90,6 @@ class DetectionDataset:
         cache: object = "auto",
         cache_budget_bytes: Optional[int] = None,
     ):
-        if with_keypoints:
-            raise NotImplementedError(
-                "podtpu_torch does not port keypoint targets yet "
-                "(ROADMAP.md, item 11: Keypoint R-CNN)")
         self.project = project
         self.images = list(project.image_dict.values())
         self.image_size = tuple(image_size)
@@ -95,6 +97,9 @@ class DetectionDataset:
         # Mask R-CNN targets: per-gt planes at 1/mask_stride of the canvas.
         self.with_masks = with_masks
         self.mask_stride = mask_stride
+        # Keypoint R-CNN targets: per-gt (x, y, visibility) triples.
+        self.with_keypoints = with_keypoints
+        self.num_keypoints = num_keypoints
         # Label -> 1-based index (background = 0).
         names = list(label_names) if label_names is not None \
             else list(project.label_names)
@@ -134,7 +139,9 @@ class DetectionDataset:
             valid=np.zeros((g,), bool), scale=1.0, original_size=(ch, cw),
             index=i, ok=False,
             masks=np.zeros((g, mh, mw), np.float32) if self.with_masks
-            else None)
+            else None,
+            keypoints=np.zeros((g, self.num_keypoints, 3), np.float32)
+            if self.with_keypoints else None)
 
     def load(self, i: int) -> Sample:
         if self._cache is not None and i in self._cache:
@@ -183,9 +190,23 @@ class DetectionDataset:
                     masks[j,
                           int(max(y1, 0)): int(min(np.ceil(y2), mh)),
                           int(max(x1, 0)): int(min(np.ceil(x2), mw))] = 1.0
+        keypoints = None
+        if self.with_keypoints:
+            k = self.num_keypoints
+            keypoints = np.zeros((g, k, 3), np.float32)
+            for j, box in enumerate(kept):
+                kp = getattr(box, "keypoints", None)
+                if not kp:
+                    continue
+                arr = np.asarray(kp, np.float32).reshape(-1, 3)[:k].copy()
+                arr[:, :2] *= scale
+                off = ((arr[:, 0] < 0) | (arr[:, 0] >= cw)
+                       | (arr[:, 1] < 0) | (arr[:, 1] >= ch))
+                arr[off, 2] = 0.0
+                keypoints[j, : arr.shape[0]] = arr
         return Sample(image=canvas, boxes=boxes, labels=labels, valid=valid,
                       scale=scale, original_size=tuple(original_size),
-                      index=i, masks=masks)
+                      index=i, masks=masks, keypoints=keypoints)
 
     def load_batch(self, indices) -> List[Sample]:
         """The samples of ``indices``: cached ones from the cache, the rest
@@ -228,8 +249,8 @@ def train_test_split(
 
 
 def collate(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
-    """Stack samples into one fixed-shape batch dict (with ``masks`` when
-    the samples carry mask targets)."""
+    """Stack samples into one fixed-shape batch dict (with ``masks`` and
+    ``keypoints`` when the samples carry those targets)."""
     batch = {
         "image": np.stack([s.image for s in samples]),
         "boxes": np.stack([s.boxes for s in samples]),
@@ -242,4 +263,6 @@ def collate(samples: Sequence[Sample]) -> Dict[str, np.ndarray]:
     }
     if samples[0].masks is not None:
         batch["masks"] = np.stack([s.masks for s in samples])
+    if samples[0].keypoints is not None:
+        batch["keypoints"] = np.stack([s.keypoints for s in samples])
     return batch

@@ -11,14 +11,14 @@ reference's contract (`miso/object_detection/inference.py:16-131`):
   detection with ``score > threshold`` becomes a ``RectangleAnnotation``
   labelled ``model_labels[label - 1]`` in original-image pixels (for a mask
   model a ``PolygonAnnotation`` traced around the largest component of its
-  mask, or the rectangle when the mask is empty); returns a new project
-  holding only the detections;
+  mask, or the rectangle when the mask is empty; for a keypoint model the
+  rectangle carries its ``(x, y, score)`` keypoints in original-image
+  pixels); returns a new project holding only the detections;
 * ``infer_directory``: the project is every jpg/jpeg/png/bmp/tiff/tif file
   under a directory, recursively, then the same loop.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; with
 no GPU and no explicit device they raise rather than fall back to the CPU.
-Keypoints wait for ROADMAP.md item 11.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from podtpu_torch.data.loader import Loader
 from podtpu_torch.data.project import Project
 from podtpu_torch.infer.masks import mask_to_polygons, paste_mask
 from podtpu_torch.models.detector import make_detector
-from podtpu_torch.models.roi_heads import Detections
+from podtpu_torch.models.roi_heads import Detections, KeypointOutput
 from podtpu_torch.models.weights import state_dict_from_flax
 from podtpu_torch.train.checkpoints import load_model
 
@@ -62,7 +62,8 @@ def load_inference_model(model_dir: str, device=None
 
     ``forward(images)`` takes ``[B, H, W, 3]`` uint8 canvases (numpy or
     torch) and returns :class:`Detections` on the model's device, for a
-    mask model with its masks (see :func:`split_eval_output`).
+    mask or keypoint model with its masks or keypoints (see
+    :func:`split_eval_output`).
     """
     dev = resolve_device(device)
     params, frozen, cfg, labels = load_model(model_dir)
@@ -82,11 +83,15 @@ def split_eval_output(out) -> Tuple[
         Detections, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(Detections, masks, keypoints)`` of an eval forward: a box model
     returns ``Detections``, a mask model ``(Detections, masks [B, D, M,
-    M])``.  Keypoints (ROADMAP.md item 11) are None."""
+    M])``, a keypoint model ``(Detections, KeypointOutput)`` whose
+    keypoints are ``[B, D, K, 3]``; what a model does not predict is
+    None."""
     if isinstance(out, Detections):
         return out, None, None
-    det, masks = out
-    return det, masks, None
+    det, extra = out
+    if isinstance(extra, KeypointOutput):
+        return det, None, extra.keypoints
+    return det, extra, None
 
 
 def _run_inference(project: Project, model_dir: str,
@@ -116,13 +121,15 @@ def _run_inference(project: Project, model_dir: str,
     out = Project()
     out.task_names = dict(project.task_names)
     for batch, batch_valid in loader:
-        det, masks, _ = split_eval_output(forward(batch["image"]))
+        det, masks, kps = split_eval_output(forward(batch["image"]))
         boxes = det.boxes.float().cpu().numpy()
         scores = det.scores.float().cpu().numpy()
         labels = det.labels.cpu().numpy()
         valid = det.valid.cpu().numpy()
         if masks is not None:
             masks = masks.float().cpu().numpy()
+        if kps is not None:
+            kps = kps.float().cpu().numpy()
         for i, ok in enumerate(batch_valid):
             if not ok:
                 continue
@@ -139,6 +146,11 @@ def _run_inference(project: Project, model_dir: str,
                     ann = RectangleAnnotation(
                         float(b[0]), float(b[1]), float(b[2] - b[0]),
                         float(b[3] - b[1]), label, score=s)
+                if kps is not None:
+                    kp = kps[i, j].copy()
+                    kp[:, :2] /= scale
+                    ann.keypoints = [tuple(float(v) for v in row)
+                                     for row in kp]
                 meta.boxes.append(ann)
             out.add_image(meta)
     return out

@@ -1,9 +1,10 @@
-"""Faster R-CNN and Mask R-CNN ResNet-50-FPN: eval forward and training
-losses.
+"""Faster R-CNN, Mask R-CNN and Keypoint R-CNN ResNet-50-FPN: eval forward
+and training losses.
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
 ``resnet50_fpn`` backbone with the MLP box head and, with ``with_mask``,
-the mask head; and ``make_detector``).
+the mask head or, with ``with_keypoints``, the keypoint head; and
+``make_detector``).
 The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
 the JAX model, normalises them in float32 and runs the network on NCHW
 tensors in ``torch.channels_last`` memory.  Capacities are static:
@@ -11,12 +12,17 @@ tensors in ``torch.channels_last`` memory.  Capacities are static:
 per image, with validity masks.
 
 Given ground truth, the forward returns the training losses instead of
-detections (four, and ``loss_mask`` for a mask model given ``masks``).  A
-mask model's eval forward returns ``(Detections, masks)``, each detection's
-mask probabilities ``[B, D, 28, 28]`` for its label.  Its random decisions
-(the RPN's and the RoI head's sampler draws) are the explicit tensors of
-:class:`ModelDraws`, made by :func:`draw_model` from a ``torch.Generator``
-or handed in by a caller.
+detections (four, and ``loss_mask`` for a mask model given ``masks``,
+``loss_keypoint`` for a keypoint model given ``keypoints``).  A mask
+model's eval forward returns ``(Detections, masks)``, each detection's
+mask probabilities ``[B, D, 28, 28]`` for its label; a keypoint model's
+``(Detections, KeypointOutput)``, each detection's ``[K, 3]`` keypoints
+(x, y, score) in canvas coordinates.  The keypoint head pools each box
+expanded by ``keypoint_roi_expand`` about its centre, and runs on every
+sampled RoI and every detection slot, as in the JAX package.  Its random
+decisions (the RPN's and the RoI head's sampler draws) are the explicit
+tensors of :class:`ModelDraws`, made by :func:`draw_model` from a
+``torch.Generator`` or handed in by a caller.
 """
 from __future__ import annotations
 
@@ -57,6 +63,11 @@ class FasterRCNN(nn.Module):
             self.roi_heads = rh.BoxMaskHead(
                 cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
                 cfg.mask_head_channels, compute_dtype=dt)
+        elif cfg.with_keypoints:
+            self.roi_heads = rh.BoxKeypointHead(
+                cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
+                cfg.num_keypoints, cfg.keypoint_head_channels,
+                compute_dtype=dt)
         else:
             self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
                                         cfg.num_classes, compute_dtype=dt)
@@ -78,10 +89,12 @@ class FasterRCNN(nn.Module):
     def forward(self, images: torch.Tensor, gt: Optional[Dict] = None,
                 draws: Optional["ModelDraws"] = None,
                 generator: Optional[torch.Generator] = None):
-        """Detections of ``[B, H, W, 3]`` images (with their masks for a
-        mask model); with ``gt`` (``boxes [B, G, 4]``, ``labels [B, G]``,
-        ``valid [B, G]``, optional ``image_weight [B]`` and, for a mask
-        model, ``masks [B, G, Hm, Wm]``) the dict of training losses, with
+        """Detections of ``[B, H, W, 3]`` images (with their masks or
+        keypoints for a mask or keypoint model); with ``gt`` (``boxes [B,
+        G, 4]``, ``labels [B, G]``, ``valid [B, G]``, optional
+        ``image_weight [B]`` and, for a mask model, ``masks [B, G, Hm,
+        Wm]``, for a keypoint model ``keypoints [B, G, K, 3]``) the dict of
+        training losses, with
         the sampler draws ``draws`` or, if None, draws from
         ``generator``."""
         cfg = self.cfg
@@ -104,6 +117,9 @@ class FasterRCNN(nn.Module):
             proposals.boxes, proposals.valid, cfg)
         if cfg.with_mask:
             return det, self._predict_masks(pyramid, det)
+        if cfg.with_keypoints:
+            return det, rh.KeypointOutput(self._predict_keypoints(pyramid,
+                                                                  det))
         return det
 
     def _mask_logits(self, pyramid, boxes):
@@ -124,6 +140,31 @@ class FasterRCNN(nn.Module):
         return torch.sigmoid(rh.pick_class(
             logits.reshape(b * d, *logits.shape[2:]),
             det.labels.reshape(-1)).reshape(b, d, *logits.shape[3:]))
+
+    def _keypoint_logits(self, pyramid, boxes):
+        """``(kp_rois [B, K, 4], logits [B, K, J, H, H])``: the ``[B, K,
+        4]`` boxes expanded by ``keypoint_roi_expand``, and the heatmap
+        logits pooled over them."""
+        cfg = self.cfg
+        kp_rois = rh.expand_rois(boxes, cfg.keypoint_roi_expand)
+        pooled = rh.pool_rois_batched(pyramid, kp_rois, cfg,
+                                      pool_size=cfg.keypoint_pool_size,
+                                      channels_last=True)
+        b, k = pooled.shape[:2]
+        logits = self.roi_heads.keypoint_logits(
+            pooled.reshape(b * k, *pooled.shape[2:]))
+        return kp_rois, logits.reshape(b, k, *logits.shape[1:])
+
+    def _predict_keypoints(self, pyramid, det: rh.Detections
+                           ) -> torch.Tensor:
+        """``[B, D, K, 3]`` keypoints (x, y, score) of every detection
+        slot, valid or not."""
+        kp_rois, logits = self._keypoint_logits(pyramid, det.boxes)
+        b, d = logits.shape[:2]
+        kps = rh.heatmaps_to_keypoints(
+            logits.reshape(b * d, *logits.shape[2:]),
+            kp_rois.reshape(b * d, 4))
+        return kps.reshape(b, d, *kps.shape[1:])
 
     def _losses(self, pyramid, level_logits, level_deltas, gt, draws):
         cfg = self.cfg
@@ -158,6 +199,13 @@ class FasterRCNN(nn.Module):
             losses["loss_mask"] = rh.mask_loss(
                 self._mask_logits(pyramid, sampled.boxes), sampled,
                 gt["masks"], cfg, img_weight=img_w)
+        if cfg.with_keypoints and "keypoints" in gt:
+            # Targets are binned in the frame the heatmaps were pooled over.
+            kp_rois, kp_logits = self._keypoint_logits(pyramid,
+                                                       sampled.boxes)
+            losses["loss_keypoint"] = rh.keypoint_loss(
+                kp_logits, kp_rois, sampled, gt["keypoints"],
+                img_weight=img_w)
         return losses
 
 
@@ -207,8 +255,6 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.with_mask and cfg.mask_head_norm:
         return ("mask_head_norm, the v2 normed mask tower (ROADMAP.md, item "
                 "12: v2 recipes)")
-    if cfg.with_keypoints:
-        return "with_keypoints (ROADMAP.md, item 11: Keypoint R-CNN)"
     if cfg.anchors_per_location != len(cfg.anchor_ratios) \
             or len(cfg.strides) != 5:
         return "anchor layouts other than one size per P2..P6 level"
@@ -217,7 +263,13 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
 
 def make_detector(cfg: ModelConfig) -> FasterRCNN:
     """The model for ``cfg``; raises ``NotImplementedError`` for what the
-    port has not reached yet, naming the ROADMAP item that brings it."""
+    port has not reached yet, naming the ROADMAP item that brings it, and
+    ``ValueError`` for a mask head beside a keypoint head."""
+    if cfg.with_mask and cfg.with_keypoints:
+        raise ValueError(
+            "with_mask and with_keypoints are mutually exclusive (the "
+            "torchvision zoo has no combined model, and the inference "
+            "output carries one extra head)")
     missing = _unsupported(cfg)
     if missing is not None:
         raise NotImplementedError(f"podtpu_torch does not port {missing} "

@@ -3,11 +3,15 @@ detection postprocess.
 
 Counterpart of ``podtpu/models/roi_heads.py``: ``BoxHead`` (torchvision's
 TwoMLPHead + FastRCNNPredictor), ``BoxMaskHead`` (the same with the mask
-head, JAX's ``MaskHead``), ``sample_rois``, ``box_head_losses`` and
-``mask_loss`` (batched over images here, vmapped there),
-``postprocess_detections`` and ``pool_rois_batched``.  Module names follow
-torchvision (``box_head.fc6``, ``box_predictor.cls_score``,
-``mask_head.mask_fcn1``, ``mask_predictor.conv5_mask``).  fc6 consumes the
+head, JAX's ``MaskHead``), ``BoxKeypointHead`` (the same with the keypoint
+head, JAX's ``KeypointHead``), ``sample_rois``, ``box_head_losses``,
+``mask_loss`` and ``keypoint_loss`` (batched over images here, vmapped
+there), the keypoint codec (``keypoints_to_heatmap``, ``expand_rois``,
+``heatmaps_to_keypoints``), ``postprocess_detections`` and
+``pool_rois_batched``.  Module names follow torchvision (``box_head.fc6``,
+``box_predictor.cls_score``, ``mask_head.mask_fcn1``,
+``mask_predictor.conv5_mask``, ``keypoint_head.0``,
+``keypoint_predictor.kps_score_lowres``).  fc6 consumes the
 pooled features flattened as (C, H, W), torchvision's order, so its weight
 is in torchvision layout; the JAX head flattens (H, W, C) and the weight
 bridge (``models/weights.py``) permutes between the two.
@@ -99,7 +103,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt), self.stride)
+                                  self.bias.to(dt), self.stride,
+                                  self.padding)
 
 
 class MaskRCNNHeads(nn.Module):
@@ -154,6 +159,66 @@ class BoxMaskHead(BoxHead):
 
     def mask_logits(self, pooled: torch.Tensor) -> torch.Tensor:
         return self.mask_predictor(self.mask_head(pooled)).float()
+
+
+class KeypointRCNNHeads(nn.Sequential):
+    """Eight 3x3 convolutions, each followed by ReLU (torchvision's
+    ``KeypointRCNNHeads``: the convolutions at indices 0, 2, .., 14)."""
+
+    def __init__(self, in_channels: int, channels: int = 512,
+                 compute_dtype: torch.dtype = torch.float32):
+        layers = []
+        for i in range(8):
+            layers += [Conv2d(in_channels if i == 0 else channels, channels,
+                              3, padding=1, compute_dtype=compute_dtype),
+                       nn.ReLU()]
+        super().__init__(*layers)
+
+
+class KeypointRCNNPredictor(nn.Module):
+    """4x4 stride-2 transposed convolution (padding 1) to one plane per
+    keypoint, then a 2x bilinear upsample in float32 (torchvision's
+    ``KeypointRCNNPredictor``; ``align_corners=False`` is the half-pixel
+    ``jax.image.resize`` of the JAX head)."""
+
+    def __init__(self, channels: int, num_keypoints: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kps_score_lowres = ConvTranspose2d(
+            channels, num_keypoints, 4, stride=2, padding=1,
+            compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.kps_score_lowres(x).float()
+        return F.interpolate(x, scale_factor=2, mode="bilinear",
+                             align_corners=False)
+
+
+class BoxKeypointHead(BoxHead):
+    """The box head and Keypoint R-CNN's keypoint head (JAX's
+    ``KeypointHead``) under one module, so their parameters carry
+    torchvision's ``roi_heads.*`` names.  ``keypoint_logits`` maps ``[N, C,
+    P, P]`` pooled features to float32 heatmap logits ``[N, K, 4P, 4P]``."""
+
+    def __init__(self, channels: int, pool_size: int, num_classes: int,
+                 num_keypoints: int, keypoint_channels: int = 512,
+                 hidden: int = 1024,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(channels, pool_size, num_classes, hidden,
+                         compute_dtype)
+        self.keypoint_head = KeypointRCNNHeads(channels, keypoint_channels,
+                                               compute_dtype)
+        self.keypoint_predictor = KeypointRCNNPredictor(
+            keypoint_channels, num_keypoints, compute_dtype)
+
+    def keypoint_logits(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.keypoint_predictor(self.keypoint_head(pooled))
+
+
+class KeypointOutput(NamedTuple):
+    """The keypoint model's extra eval output, typed so that
+    ``split_eval_output`` tells it from masks without looking at shapes."""
+    keypoints: torch.Tensor  # [B, D, K, 3] (x, y, score), canvas coords
 
 
 def pick_class(mask_logits: torch.Tensor, labels: torch.Tensor):
@@ -339,3 +404,105 @@ def mask_loss(mask_logits: torch.Tensor, rois: SampledRois,
     if img_weight is None:
         return losses.mean()
     return (losses * img_weight).sum() / img_weight.sum().clamp(min=1.0)
+
+
+def keypoints_to_heatmap(kps: torch.Tensor, rois: torch.Tensor,
+                         heatmap_size: int):
+    """Each ``[N, K, 3]`` keypoint's cell in its RoI's ``heatmap_size``
+    square grid (torchvision's ``keypoints_to_heatmap``) -> ``(lin [N, K]
+    int64, valid [N, K] bool)``: valid where visible and inside the RoI.  A
+    point exactly on the RoI's right or bottom edge falls in the last
+    cell."""
+    x1, y1 = rois[:, 0:1], rois[:, 1:2]
+    sx = heatmap_size / (rois[:, 2:3] - x1).clamp(min=1e-6)
+    sy = heatmap_size / (rois[:, 3:4] - y1).clamp(min=1e-6)
+    x_edge = kps[..., 0] == rois[:, 2:3]
+    y_edge = kps[..., 1] == rois[:, 3:4]
+    x = torch.floor((kps[..., 0] - x1) * sx).long()
+    y = torch.floor((kps[..., 1] - y1) * sy).long()
+    x = torch.where(x_edge, heatmap_size - 1, x)
+    y = torch.where(y_edge, heatmap_size - 1, y)
+    inside = (x >= 0) & (y >= 0) & (x < heatmap_size) & (y < heatmap_size)
+    valid = inside & (kps[..., 2] > 0)
+    lin = (y * heatmap_size + x).clamp(0, heatmap_size * heatmap_size - 1)
+    return lin, valid
+
+
+def keypoint_loss(kp_logits: torch.Tensor, kp_rois: torch.Tensor,
+                  rois: SampledRois, gt_keypoints: torch.Tensor,
+                  img_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the heatmap cells of each visible keypoint of
+    each positive RoI (torchvision's ``keypointrcnn_loss``): ``[B, S, K, H,
+    H]`` logits pooled over the ``[B, S, 4]`` boxes ``kp_rois`` (the sampled
+    RoIs, expanded), ``[B, G, K, 3]`` gt keypoints in canvas coordinates;
+    each image's sum over its weights, then the mean over images or, with
+    ``img_weight [B]``, the weighted mean.  The log-softmax over each
+    heatmap's ``H * H`` cells is taken in float32."""
+    b, s, k, h = kp_logits.shape[:4]
+    idx = rois.gt_index[..., None, None].expand(-1, -1, k, 3)
+    kps = torch.gather(gt_keypoints, 1, idx)                  # [B, S, K, 3]
+    target, valid = keypoints_to_heatmap(kps.reshape(b * s, k, 3),
+                                         kp_rois.reshape(b * s, 4), h)
+    w = (valid & (rois.is_pos & rois.valid).reshape(b * s, 1)).float()
+    logp = torch.log_softmax(kp_logits.reshape(b * s * k, h * h), dim=1)
+    ce = -torch.gather(logp, 1, target.reshape(-1, 1))[:, 0]
+    w = w.reshape(b, s * k)
+    losses = (ce.reshape(b, s * k) * w).sum(1) / w.sum(1).clamp(min=1.0)
+    if img_weight is None:
+        return losses.mean()
+    return (losses * img_weight).sum() / img_weight.sum().clamp(min=1.0)
+
+
+def expand_rois(rois: torch.Tensor, factor: float) -> torch.Tensor:
+    """``[..., 4]`` xyxy boxes scaled by ``factor`` about their centres
+    (``ModelConfig.keypoint_roi_expand``); the boxes themselves at 1.0."""
+    if factor == 1.0:
+        return rois
+    cx = (rois[..., 0] + rois[..., 2]) * 0.5
+    cy = (rois[..., 1] + rois[..., 3]) * 0.5
+    hw = (rois[..., 2] - rois[..., 0]) * (0.5 * factor)
+    hh = (rois[..., 3] - rois[..., 1]) * (0.5 * factor)
+    return torch.stack([cx - hw, cy - hh, cx + hw, cy + hh], dim=-1)
+
+
+def heatmaps_to_keypoints(kp_logits: torch.Tensor,
+                          rois: torch.Tensor) -> torch.Tensor:
+    """``[D, K, H, H]`` heatmap logits over ``[D, 4]`` boxes -> keypoints
+    ``[D, K, 3]`` (x, y, score) in the boxes' frame, as the JAX package
+    decodes them: the argmax cell (the first on ties), refined by the
+    vertex of the parabola through it and its two neighbours along each
+    axis, clamped to half a cell (a cell on the grid's border keeps its
+    centre); the score is the softmax probability at the argmax, ``1 /
+    sum(exp(logit - max))``."""
+    d, k, h = kp_logits.shape[:3]
+    flat = kp_logits.reshape(d, k, h * h)
+    top, idx = flat.max(dim=-1)
+    score = 1.0 / torch.exp(flat - top[..., None]).sum(-1)
+    yi = torch.div(idx, h, rounding_mode="floor")
+    xi = idx - yi * h
+
+    def val_at(yy, xx):
+        lin = yy.clamp(0, h - 1) * h + xx.clamp(0, h - 1)
+        return torch.gather(flat, 2, lin[..., None])[..., 0]
+
+    def refine(lo, c, hi, at_border):
+        denom = lo - 2.0 * c + hi
+        off = torch.where(
+            denom.abs() > 1e-12,
+            0.5 * (lo - hi) / torch.where(denom == 0, torch.ones_like(denom),
+                                          denom),
+            torch.zeros_like(denom))
+        return torch.where(at_border, torch.zeros_like(off),
+                           off.clamp(-0.5, 0.5))
+
+    v0 = val_at(yi, xi)
+    dx = refine(val_at(yi, xi - 1), v0, val_at(yi, xi + 1),
+                (xi <= 0) | (xi >= h - 1))
+    dy = refine(val_at(yi - 1, xi), v0, val_at(yi + 1, xi),
+                (yi <= 0) | (yi >= h - 1))
+    xf = xi.float() + 0.5 + dx
+    yf = yi.float() + 0.5 + dy
+    x1, y1 = rois[:, 0:1], rois[:, 1:2]
+    w = (rois[:, 2:3] - x1).clamp(min=1e-6)
+    hgt = (rois[:, 3:4] - y1).clamp(min=1e-6)
+    return torch.stack([x1 + xf * w / h, y1 + yf * hgt / h, score], dim=-1)

@@ -10,8 +10,10 @@ exact inverse.  The transforms are those of
 * dense weights: flax ``[in, out]`` <-> torch ``[out, in]``;
 * fc6: the JAX box head flattens pooled features as (H, W, C), the port as
   (C, H, W) (torchvision), so the input axis is permuted as well;
-* the mask head's transposed convolution: torch ``[in, out, kH, kW]`` <->
-  flax HWIO ``[kH, kW, in, out]`` with the spatial taps flipped;
+* the mask and keypoint heads' transposed convolutions: torch ``[in, out,
+  kH, kW]`` <-> flax HWIO ``[kH, kW, in, out]`` with the spatial taps
+  flipped (the keypoint head's torch ``padding=1`` is flax's padding 2 on
+  the dilated input: the layer computes the same either way);
 * frozen BatchNorm ``weight/bias/mean/var`` <-> the buffers
   ``weight/bias/running_mean/running_var``.
 """
@@ -39,10 +41,12 @@ def _layer(port: str, flax: str, kind: str,
     return out
 
 
-def key_map(with_mask: bool = False) -> List[Tuple[str, str, str, str]]:
+def key_map(with_mask: bool = False, with_keypoints: bool = False
+            ) -> List[Tuple[str, str, str, str]]:
     """``(port key, flax collection, flax path, kind)`` for every tensor of
     the Faster R-CNN ResNet-50-FPN detector with the MLP box head and, with
-    ``with_mask``, Mask R-CNN's mask head."""
+    ``with_mask``, Mask R-CNN's mask head, with ``with_keypoints`` Keypoint
+    R-CNN's keypoint head."""
     m = _layer("backbone.body.conv1", "backbone/conv1", "conv", bias=False)
     m += _bn("backbone.body.bn1", "backbone/bn1")
     for stage, blocks in enumerate(STAGE_SIZES, start=1):
@@ -77,6 +81,12 @@ def key_map(with_mask: bool = False) -> List[Tuple[str, str, str, str]]:
                     "deconv")
         m += _layer("roi_heads.mask_predictor.mask_fcn_logits",
                     "mask_head/logits", "conv")
+    if with_keypoints:
+        for i in range(8):
+            m += _layer(f"roi_heads.keypoint_head.{2 * i}",
+                        f"keypoint_head/conv{i + 1}", "conv")
+        m += _layer("roi_heads.keypoint_predictor.kps_score_lowres",
+                    "keypoint_head/deconv", "deconv")
     return m
 
 
@@ -128,11 +138,12 @@ def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
 def state_dict_from_flax(params: Dict, frozen: Dict,
                          pool_size: int = 7) -> Dict[str, np.ndarray]:
     """The port's state dict (numpy arrays) from flax ``params``/``frozen``
-    trees (with the mask head when ``params`` has one); raises ``KeyError``
-    naming a missing tree entry."""
+    trees (with the mask or keypoint head when ``params`` has one); raises
+    ``KeyError`` naming a missing tree entry."""
     trees = {"params": params, "frozen": frozen}
     sd = {}
-    for key, coll, path, kind in key_map("mask_head" in params):
+    for key, coll, path, kind in key_map("mask_head" in params,
+                                         "keypoint_head" in params):
         try:
             value = _get(trees[coll], path)
         except KeyError:
@@ -145,10 +156,13 @@ def state_dict_from_flax(params: Dict, frozen: Dict,
 def flax_from_state_dict(state_dict: Dict,
                          pool_size: int = 7) -> Tuple[Dict, Dict]:
     """``(params, frozen)`` flax trees of numpy arrays from the port's state
-    dict (tensors or arrays), with the mask head when it has one."""
+    dict (tensors or arrays), with the mask or keypoint head when it has
+    one."""
     trees: Dict[str, Dict] = {"params": {}, "frozen": {}}
     with_mask = "roi_heads.mask_predictor.conv5_mask.weight" in state_dict
-    for key, coll, path, kind in key_map(with_mask):
+    with_kps = ("roi_heads.keypoint_predictor.kps_score_lowres.weight"
+                in state_dict)
+    for key, coll, path, kind in key_map(with_mask, with_kps):
         value = state_dict[key]
         if hasattr(value, "detach"):
             value = value.detach().cpu().numpy()
@@ -198,7 +212,9 @@ def load_pretrained(model, path: str, verbose: bool = True):
     ``path`` is a ``.pth``/``.pt`` state dict in torchvision's names and
     layouts (optionally under a ``"state_dict"`` key), loaded with the same
     shape rule: a Mask R-CNN checkpoint's class-sized ``mask_fcn_logits``
-    loads only when the class count matches, as the box predictor's.
+    loads only when the class count matches, as the box predictor's, and a
+    Keypoint R-CNN checkpoint's ``kps_score_lowres`` only when the
+    keypoint count does.
     """
     import os
 

@@ -16,12 +16,12 @@ AP averaged over classes with ground truth.  The reference's modified
 quirk of printing "maxDets=100" in the row names while the values use the
 configured maxDets.
 
-Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``
-and ``"segm"`` (masks as bitmaps on a common grid, or as full-resolution
-:class:`~podtpu_torch.infer.masks.RegionMask` lists): the greedy matcher
-runs in the native C++ host library (:mod:`podtpu_torch.core.native`) when
-it loads, else as a Python loop; both give the same matches.  Keypoint
-evaluation (OKS) waits for ROADMAP.md item 11.
+Counterpart of ``podtpu/train/coco_metrics.py`` for ``iou_type="bbox"``,
+``"segm"`` (masks as bitmaps on a common grid, or as full-resolution
+:class:`~podtpu_torch.infer.masks.RegionMask` lists) and ``"keypoints"``
+(OKS, :func:`keypoint_oks`): the greedy matcher runs in the native C++
+host library (:mod:`podtpu_torch.core.native`) when it loads, else as a
+Python loop; both give the same matches.
 """
 from __future__ import annotations
 
@@ -58,6 +58,53 @@ STAT_NAMES = [
 ]
 
 
+# pycocotools COCOeval keypoint sigmas (the 17 COCO person joints).
+COCO_KP_SIGMAS = np.array([
+    .026, .025, .025, .035, .035, .079, .079, .072, .072, .062, .062,
+    .107, .107, .087, .087, .089, .089])
+
+
+def keypoint_oks(dt_kps: np.ndarray, gt_kps: np.ndarray,
+                 gt_boxes: np.ndarray,
+                 sigmas: Optional[np.ndarray] = None) -> np.ndarray:
+    """Object Keypoint Similarity between ``[D, K, 3]`` detections and
+    ``[G, K, 3]`` ground truth -> ``[D, G]`` (pycocotools ``computeOks``).
+    The gt boxes (xyxy) give each object's area; for a gt with no visible
+    keypoint the distance is measured outside its box doubled, as
+    pycocotools does.  ``sigmas``: the COCO-17 constants when K = 17, else
+    0.05 each."""
+    d, g = len(dt_kps), len(gt_kps)
+    if d == 0 or g == 0:
+        return np.zeros((d, g))
+    k = gt_kps.shape[1]
+    if sigmas is None:
+        sigmas = COCO_KP_SIGMAS if k == len(COCO_KP_SIGMAS) \
+            else np.full((k,), 0.05)
+    var = (2.0 * sigmas) ** 2
+    ious = np.zeros((d, g))
+    for gi in range(g):
+        xg, yg, vg = gt_kps[gi, :, 0], gt_kps[gi, :, 1], gt_kps[gi, :, 2]
+        x1, y1, x2, y2 = gt_boxes[gi]
+        area = max((x2 - x1) * (y2 - y1), 0.0)
+        k1 = int((vg > 0).sum())
+        for di in range(d):
+            xd, yd = dt_kps[di, :, 0], dt_kps[di, :, 1]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                z = np.zeros((k,))
+                w2, h2 = (x2 - x1), (y2 - y1)
+                dx = np.maximum(z, (x1 - w2 / 2) - xd) \
+                    + np.maximum(z, xd - (x2 + w2 / 2))
+                dy = np.maximum(z, (y1 - h2 / 2) - yd) \
+                    + np.maximum(z, yd - (y2 + h2 / 2))
+            e = (dx ** 2 + dy ** 2) / var / (area + np.spacing(1)) / 2.0
+            if k1 > 0:
+                e = e[vg > 0]
+            ious[di, gi] = np.sum(np.exp(-e)) / e.shape[0]
+    return ious
+
+
 def pairwise_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """IoU between ``[N,4]`` and ``[M,4]`` xyxy boxes (numpy, host-side)."""
     if len(a) == 0 or len(b) == 0:
@@ -91,11 +138,7 @@ class COCOEvaluator:
     def __init__(self, num_classes: int,
                  max_dets: Sequence[int] = (10, 30, 300),
                  iou_type: str = "bbox"):
-        if iou_type == "keypoints":
-            raise NotImplementedError(
-                "podtpu_torch does not port iou_type='keypoints' yet "
-                "(ROADMAP.md, item 11: Keypoint R-CNN)")
-        if iou_type not in ("bbox", "segm"):
+        if iou_type not in ("bbox", "segm", "keypoints"):
             raise ValueError(f"unknown iou_type {iou_type!r}")
         self.num_classes = num_classes  # foreground classes, labels 1..K
         self.max_dets = tuple(max_dets)
@@ -114,6 +157,8 @@ class COCOEvaluator:
                dt_labels: np.ndarray,
                gt_masks: Optional[np.ndarray] = None,
                dt_masks: Optional[np.ndarray] = None,
+               gt_keypoints: Optional[np.ndarray] = None,
+               dt_keypoints: Optional[np.ndarray] = None,
                area_scale: float = 1.0) -> None:
         """Add one image's ground truth + detections (xyxy boxes in
         original-image coordinates).
@@ -123,12 +168,23 @@ class COCOEvaluator:
         ``RegionMask`` (full-resolution, box-bounded); IoU and object areas
         come from the masks, ``area_scale`` converting grid px^2 to
         original-image px^2 (COCO's area ranges are in image pixels).
+
+        For ``iou_type="keypoints"``: ``gt_keypoints``/``dt_keypoints`` are
+        ``[G|D, K, 3]`` (x, y, v) arrays; the "IoU" is the OKS, with areas
+        from the gt boxes, and a gt with no labelled keypoint is ignored.
         """
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
         dt_boxes = np.asarray(dt_boxes, np.float64).reshape(-1, 4)
         gt_labels = np.asarray(gt_labels).reshape(-1)
         dt_labels = np.asarray(dt_labels).reshape(-1)
         dt_scores = np.asarray(dt_scores, np.float64).reshape(-1)
+        kps = self.iou_type == "keypoints"
+        if kps:
+            if gt_keypoints is None or dt_keypoints is None:
+                raise ValueError("iou_type='keypoints' needs gt_keypoints "
+                                 "and dt_keypoints")
+            gt_keypoints = np.asarray(gt_keypoints, np.float64)
+            dt_keypoints = np.asarray(dt_keypoints, np.float64)
         segm = self.iou_type == "segm"
         region_masks = False
         if segm:
@@ -168,10 +224,17 @@ class COCOEvaluator:
                                        for i in np.flatnonzero(g_sel)])
             elif segm:
                 iou = mask_iou(dt_masks[d_sel][order], gt_masks[g_sel])
+            elif kps:
+                iou = keypoint_oks(dt_keypoints[d_sel][order],
+                                   gt_keypoints[g_sel], gt_boxes[g_sel])
             else:
                 iou = pairwise_iou(dt_boxes[d_sel][order], gt_boxes[g_sel])
+            # COCO's keypoint evaluation ignores gts with no labelled
+            # keypoint (kept boolean: the matcher negates it).
+            kp_ig = (gt_keypoints[g_sel][:, :, 2] > 0).sum(-1) == 0 \
+                if kps else np.zeros(int(g_sel.sum()), bool)
             for aname, (lo, hi) in AREA_RANGES.items():
-                g_ig = (g_area < lo) | (g_area > hi)
+                g_ig = (g_area < lo) | (g_area > hi) | kp_ig
                 self._evals[(k, aname)].append(
                     self._match(iou, d_score, d_area, g_ig, (lo, hi)))
 

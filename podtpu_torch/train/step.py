@@ -61,13 +61,15 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     parameters), which is the GPU unless the caller passes ``"cpu"``; with
     no GPU and no device this raises.  ``batch`` holds ``image`` uint8
     ``[B, H, W, 3]``, ``boxes [B, G, 4]``, ``labels [B, G]``, ``valid
-    [B, G]`` and optionally ``image_weight [B]`` and mask targets ``masks
-    [B, G, Hm, Wm]``; it is moved to the device.  With
-    ``DataConfig.copy_paste`` the batch is copy-pasted before the policy.
+    [B, G]`` and optionally ``image_weight [B]``, mask targets ``masks
+    [B, G, Hm, Wm]`` and keypoint targets ``keypoints [B, G, K, 3]``; it is
+    moved to the device.  With ``DataConfig.copy_paste`` the batch is
+    copy-pasted before the policy (keypoints stay as they were, as in the
+    JAX step).
     ``generator`` (on the device) makes the step's draws unless ``draws``
     gives them.  ``metrics`` holds the losses (``loss_mask`` too for a mask
-    model), their sum ``loss`` and ``lr``, as tensors (reading them waits
-    for the step).
+    model, ``loss_keypoint`` for a keypoint model), their sum ``loss`` and
+    ``lr``, as tensors (reading them waits for the step).
     ``mark``, if given, is called with ``"augment"``, ``"forward_losses"``,
     ``"backward"`` and ``"optimizer"`` as each part of a step begins, and
     with ``"end"`` after the last, so a profiler can time the parts.
@@ -91,15 +93,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         images, boxes, labels, valid, masks = (
             images_to_float(batch["image"]), batch["boxes"],
             batch["labels"], batch["valid"], batch.get("masks"))
+        keypoints = batch.get("keypoints")
         if cfg.data.copy_paste:
             images, boxes, labels, valid, masks = copy_paste_batch(
                 draws.copy_paste, images, boxes, labels, valid, masks)
-        images, boxes, valid, masks = augment_batch_policy(
+        images, boxes, valid, masks, keypoints = augment_batch_policy(
             policy, images, boxes, valid, draws.augment, masks=masks,
-            **policy_kw)
+            keypoints=keypoints, **policy_kw)
         gt = {"boxes": boxes, "labels": labels, "valid": valid}
         if masks is not None:
             gt["masks"] = masks
+        if keypoints is not None:
+            gt["keypoints"] = keypoints
         if "image_weight" in batch:
             gt["image_weight"] = batch["image_weight"]
         mark("forward_losses")

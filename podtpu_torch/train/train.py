@@ -28,7 +28,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from podtpu_torch.core.config import Config, model_config_from_dict
+from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
+                                      model_config_from_dict)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
 from podtpu_torch.data.loader import Loader
@@ -163,8 +164,6 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
     elif mask and model_cfg.mask_head_norm:
         missing = "mask_head_norm, the v2 normed mask tower (item 12: v2 " \
                   "recipes)"
-    elif kps:
-        missing = "with_keypoints (item 11: Keypoint R-CNN)"
     elif num_devices is not None and num_devices > 1:
         missing = f"num_devices={num_devices} (item 18: data parallelism)"
     if missing is not None:
@@ -274,6 +273,11 @@ def train(project: Project,
             num_keypoints=(num_keypoints if with_keypoints
                            else cfg.model.num_keypoints))
     cfg = dataclasses.replace(cfg, train=train_cfg, model=model_cfg)
+    if cfg.model.with_keypoints and cfg.model.num_keypoints == 17 \
+            and not cfg.model.keypoint_hflip_inds and not resumed_model_cfg:
+        # COCO person-17: horizontal flips must swap left and right joints.
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, keypoint_hflip_inds=COCO_17_HFLIP_INDS))
     print("Object detector training (podtpu_torch)")
     print(f"- output directory: {output_dir}")
     project.summary()
@@ -474,6 +478,9 @@ def _save_aux_results(output_dir, final_eval, stats, labels):
     if getattr(final_eval, "segm_stats", None) is not None:
         ckpt.save_results(output_dir, final_eval.segm_stats, STAT_NAMES,
                           filename="results_segm.txt")
+    if getattr(final_eval, "keypoints_stats", None) is not None:
+        ckpt.save_results(output_dir, final_eval.keypoints_stats,
+                          STAT_NAMES, filename="results_keypoints.txt")
     if len(labels) > 1:
         # Per-class breakdown (beyond the reference's class-averaged
         # stats).
@@ -492,7 +499,8 @@ def evaluate_model(project: Project,
                    device=None):
     """Evaluate a saved model on ``project`` without training (the vendored
     trainer's ``--test-only``); returns the 12 bbox COCO stats (a mask
-    model's segm stats are printed, and written with the others).  Every
+    model's segm stats and a keypoint model's keypoints stats are printed,
+    and written with the others).  Every
     annotated image of ``project`` is scored; with ``output_dir`` the
     results files are written there in the training artifacts' format.
     ``device``: the GPU when None (raises when there is none)."""

@@ -146,13 +146,13 @@ class TestPolicies:
             jax_presets.get_policy(policy), rng, jnp.asarray(img),
             jnp.asarray(boxes), jnp.asarray(valid), **kw)
         draws = jax_augment_draws(rng, 8, policy)
-        gi, gb, gv, gm = presets.augment_batch_policy(
+        gi, gb, gv, gm, gk = presets.augment_batch_policy(
             presets.get_policy(policy), t(img), t(boxes), t(valid), draws,
             **kw)
         np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=1e-5)
         np.testing.assert_array_equal(gb.numpy(), np.asarray(wb))
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
-        assert gm is None
+        assert gm is None and gk is None
         if policy != "none":  # some images flipped, some not
             flipped = draws.hflip < 0.5
             if policy == "miso":

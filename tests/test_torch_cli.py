@@ -334,7 +334,6 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["serve", "--model", "m", "--exported"], "item 17"),
     (["train-object-detector", "-t", "5", "--with-mask", "--family",
       "faster_rcnn_v2"], "item 12"),
-    (["train-object-detector", "-t", "5", "--with-keypoints"], "item 11"),
     (["train-object-detector", "-t", "5", "--family", "retinanet"],
      "item 13"),
     (["train-object-detector", "-t", "5", "--backbone", "mobilenet_v2"],

@@ -50,7 +50,8 @@ def port_project(jp: JaxProject) -> Project:
         m = ImageMetadata(im.path, im.container, im.dataset_id, im.frame_id)
         for b in im.boxes:
             m.add_annotation(RectangleAnnotation(b.x, b.y, b.width, b.height,
-                                                 b.label, score=b.score))
+                                                 b.label, score=b.score,
+                                                 keypoints=b.keypoints))
         p.add_image(m)
     return p
 
@@ -222,9 +223,28 @@ def check_dataset_load_and_collate(jpeg_project, capsys):
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dataset.DetectionDataset(port_project(jpeg_project),
-                                 with_keypoints=True)
+    # Keypoint targets: the boxes of every other image carry three points,
+    # the last off the image, the others' none.
+    kp_project = copy.deepcopy(jpeg_project)
+    for n, im in enumerate(kp_project.image_dict.values()):
+        for b in im.boxes if n % 2 == 0 else ():
+            b.keypoints = [(b.x + b.width / 2, b.y + b.height / 2, 2.0),
+                           (b.x + b.width, b.y, 1.0), (-3.0, b.y, 2.0)]
+    kw = dict(kw, with_keypoints=True, num_keypoints=4)
+    jds = jax_dataset.DetectionDataset(kp_project, **kw)
+    pds = dataset.DetectionDataset(port_project(kp_project), **kw)
+    got = dataset.collate(pds.load_batch(idx))
+    want = jax_dataset.collate(jds.load_batch(idx))
+    assert set(got) == set(want) and got["keypoints"].shape == (4, 3, 4, 3)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    visible = 0
+    for i in range(len(jds)):
+        np.testing.assert_array_equal(pds.load(i).keypoints,
+                                      jds.load(i).keypoints)
+        visible += int((pds.load(i).keypoints[..., 2] > 0).sum())
+    assert visible > 10
+    capsys.readouterr()
 
 
 def test_dataset_load_and_collate(jpeg_project, capsys):
@@ -381,8 +401,6 @@ def test_coco_evaluator(matcher, seed, monkeypatch):
 
 
 def test_coco_evaluator_refuses_other_iou_types():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        coco_metrics.COCOEvaluator(num_classes=2, iou_type="keypoints")
     with pytest.raises(ValueError, match="iou_type"):
         coco_metrics.COCOEvaluator(num_classes=2, iou_type="boxes")
 

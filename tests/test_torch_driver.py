@@ -512,7 +512,6 @@ class TestResume:
     (dict(family="ssdlite"), "item 14"),
     (dict(backbone="mobilenet_v3_fpn"), "item 14"),
     (dict(with_mask=True, family="faster_rcnn_v2"), "item 12"),
-    (dict(with_keypoints=True), "item 11"),
     (dict(num_devices=2), "item 18"),
 ])
 def test_unported_options_raise(runs, tmp_path, kwargs, item):

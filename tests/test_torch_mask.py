@@ -412,10 +412,11 @@ def test_policies_with_masks(policy):
         rng, jnp.asarray(img), jnp.asarray(boxes), jnp.asarray(valid),
         jnp.asarray(masks))
     draws = jax_augment_draws(rng, 6, policy)
-    gi, gb, gv, gm = presets.augment_batch_policy(
+    gi, gb, gv, gm, gk = presets.augment_batch_policy(
         presets.get_policy(policy), t(img), t(boxes), t(valid), draws,
         masks=t(masks), **kw)
     np.testing.assert_allclose(gi.numpy(), np.asarray(wi), atol=1e-5)
+    assert gk is None
     for g, w in ((gb, wb), (gv, wv), (gm, wm)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     if policy != "none":

@@ -214,8 +214,10 @@ def test_coco_segm_stats(form):
     got, want = got_ev.summarize(), want_ev.summarize()
     assert max(got) > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        coco_metrics.COCOEvaluator(num_classes=2, iou_type="keypoints")
+    # Keypoints are ported: the evaluator takes them, and asks for them.
+    kp_ev = coco_metrics.COCOEvaluator(num_classes=2, iou_type="keypoints")
+    with pytest.raises(ValueError, match="gt_keypoints"):
+        kp_ev.update(**images[0])
 
 
 # -- one train(with_mask=True) epoch ------------------------------------------

@@ -241,10 +241,16 @@ class TestEvalForward:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 make_detector(cfg)
         for kw in (dict(family="retinanet"),
-                   dict(with_mask=True, mask_head_norm=True),
-                   dict(with_keypoints=True)):
+                   dict(with_mask=True, mask_head_norm=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 make_detector(ModelConfig(**kw))
+        # Keypoint R-CNN is ported: torchvision's head at its published
+        # widths, beside the box head; not beside a mask head.
+        heads = make_detector(ModelConfig(with_keypoints=True)).roi_heads
+        assert heads.keypoint_head[14].out_channels == 512
+        assert heads.keypoint_predictor.kps_score_lowres.out_channels == 17
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            make_detector(ModelConfig(with_keypoints=True, with_mask=True))
 
     def test_seeded_init_is_reproducible(self):
         cfg = ModelConfig(image_size=(64, 64))
