@@ -111,15 +111,34 @@ Phases, one JSON line each:
    are captured; the share of their RoIs that reach past the canvas is
    printed, and must be above 0 at 1.3.
 
+13. v2: the v2 recipe (``fasterrcnn_v2_config``: the normed FPN, a 2-deep
+   RPN tower, the ConvFC box head, the normed mask tower).
+   ``v2_reference`` and ``mask_v2_reference``: phase 4 for Faster and
+   Mask R-CNN v2.  ``v2_train_reference``: phase 6 for Faster R-CNN v2
+   under ``lsj``, two seeds.  ``v2_serve``: phase 5 for
+   ``fasterrcnn_v2_config(ModelConfig(num_classes=4))``, K1 twice and K2
+   once a batch, with its ``v2_breakdown`` (the ``box_head`` stage is the
+   ConvFC head).  ``v2_train``: phase 7 under ``lsj``, 3 warm-up and 10
+   timed steps, K1, K2 and K3 once a step, with ``v2_train_breakdown``
+   (its augmentation is the resample); one step's K2 and K3 calls at 7
+   are captured.  ``mask_v2_train``: Mask R-CNN v2 under ``multiscale``,
+   3 + 5 steps, K2 and K3 twice a step (7 and 14); one step's calls at 14
+   are captured.  ``v2_driver``: ``train(family="faster_rcnn_v2")`` under
+   ``lsj`` on the driver phase's 24 images for 2 epochs, the stored config
+   checked, ``evaluate_model``, ``infer`` at the median of the best scores
+   (boxes kept) and one ``DetectionServer`` batch.
+
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
 ``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
-the CLI's model, captured after the timed runs): as
+the CLI's model, captured after the timed runs; the same for the v2
+serving batch and v2 training step): as
 the path calls it and in score order, against the plain version, twice,
 with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
-batches and on the mask and keypoint calls at 14 against its float32
-plain version, twice, with times; and K3 on the mask and keypoint steps'
-gradients at 14 against its float32 plain backward, on the gradient
+batches, on the mask and keypoint calls at 14 and on the v2 step's call
+at 7 against its float32 plain version, twice, with times; and K3 on the
+mask, mask v2 and keypoint steps' gradients at 14 and the v2 step's at 7
+against its float32 plain backward, on the gradient
 scaled to unit RMS and relative to the largest wanted value, with two
 wrong results (zeros, a one-row shift) that must fail.  Then the
 ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -824,23 +843,49 @@ def check_roi_align_bwd(torch, roi_align, dev):
 
 # -- phase 4: small float32 model on the card vs the CPU ---------------------
 
-# The heads each model adds to Faster R-CNN, by the name the phases use.
-# A keypoint model flips its left and right joints as ``train()`` makes it
-# do for the COCO skeleton (a chiral skeleton: no vertical flip).
-MODELS = ("faster", "mask", "keypoint")
+# The heads each model adds to Faster R-CNN, by the name the phases use,
+# and the v2 recipe's models (``fasterrcnn_v2_config``).  A keypoint model
+# flips its left and right joints as ``train()`` makes it do for the COCO
+# skeleton (a chiral skeleton: no vertical flip).
+MODELS = ("faster", "mask", "keypoint", "faster_v2", "mask_v2")
+# The augmentation policy each model trains with: the v2 recipes' scale
+# jitters, the reference pipeline's miso for the others.
+MODEL_POLICY = {"faster_v2": "lsj", "mask_v2": "multiscale"}
 
 
 def model_kwargs(model):
     """``ModelConfig`` arguments of ``model``, one of ``MODELS``."""
-    from podtpu_torch.core.config import COCO_17_HFLIP_INDS
+    from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, ModelConfig,
+                                          fasterrcnn_v2_config)
 
-    return {"faster": {}, "mask": dict(with_mask=True),
+    head = {"mask": dict(with_mask=True),
             "keypoint": dict(with_keypoints=True,
-                             keypoint_hflip_inds=COCO_17_HFLIP_INDS)}[model]
+                             keypoint_hflip_inds=COCO_17_HFLIP_INDS)}.get(
+        head_of(model), {})
+    if not model.endswith("_v2"):
+        return head
+    v2 = fasterrcnn_v2_config(ModelConfig())
+    return dict(head, **{k: getattr(v2, k) for k in (
+        "rpn_conv_depth", "box_head_type", "fpn_norm", "mask_head_norm")})
+
+
+def head_of(model):
+    """The extra head of ``model`` ("mask", "keypoint") or None."""
+    head = model.split("_")[0]
+    return head if head in ("mask", "keypoint") else None
+
+
+def model_title(model):
+    """``model``'s name in the records, e.g. mask_rcnn_resnet50_fpn_v2."""
+    base, _, v2 = model.partition("_")
+    return f"{base}_rcnn_resnet50_fpn" + ("_v2" if v2 else "")
 
 
 def phase_name(model, name):
-    return name if model == "faster" else f"{model}_{name}"
+    """The phase line of ``model``: ``name`` for Faster R-CNN, ``v2_name``
+    for its v2 recipe, else ``model_name``."""
+    return {"faster": name, "faster_v2": f"v2_{name}"}.get(
+        model, f"{model}_{name}")
 
 
 def peak_margins(torch, logits):
@@ -881,7 +926,8 @@ def check_reference(torch, dev, model="faster"):
             with torch.inference_mode():
                 want = cpu(torch.from_numpy(img))
                 got = gpu(torch.from_numpy(img).to(dev))
-            if model != "faster":
+            head = head_of(model)
+            if head:
                 (want, want_x), (got, got_x) = want, got
             s = want.scores[want.valid].sort().values
             if s.numel() > 1 and float(s.diff().min()) < 1e-5:
@@ -896,12 +942,12 @@ def check_reference(torch, dev, model="faster"):
                    "score_max_abs_err": float(
                        (got.scores.cpu() - want.scores).abs().max())}
             ok = True
-            if model == "mask":
+            if head == "mask":
                 rec.update(mask_shape=list(got_x.shape),
                            mask_max_abs_err=float(
                                (got_x.cpu()[v] - want_x[v]).abs().max()))
                 ok = rec["mask_max_abs_err"] <= 1e-3
-            elif model == "keypoint":
+            elif head == "keypoint":
                 x = torch.from_numpy(img)
                 with torch.inference_mode():
                     want_l = cpu._keypoint_logits(cpu.features(x),
@@ -932,7 +978,7 @@ def check_reference(torch, dev, model="faster"):
             if not (ok and rec["same_valid"] and rec["same_labels"]
                     and rec["box_max_abs_err"] <= 1e-3
                     and rec["score_max_abs_err"] <= 1e-4
-                    and (rec["detections"] > 0 or model == "faster")):
+                    and (rec["detections"] > 0 or head is None)):
                 raise AssertionError("GPU detections disagree with the CPU "
                                      "reference")
             return
@@ -957,7 +1003,7 @@ def stage_breakdown(torch, model, images):
         logits, deltas = model.rpn.head(pyramid)
         props = rpn_lib.select_proposals(logits, deltas, model.rpn.anchors(),
                                          cfg)
-        pooled = rh.pool_rois_batched(pyramid, props.boxes, cfg)
+        pooled = model.pool_boxes(pyramid, props.boxes)
         b, p = pooled.shape[:2]
         flat = pooled.reshape(b * p, *pooled.shape[2:])
         cls, reg = model.roi_heads(flat)
@@ -966,8 +1012,7 @@ def stage_breakdown(torch, model, images):
             "rpn_head": lambda: model.rpn.head(pyramid),
             "select_proposals": lambda: rpn_lib.select_proposals(
                 logits, deltas, model.rpn.anchors(), cfg),
-            "roi_align": lambda: rh.pool_rois_batched(pyramid, props.boxes,
-                                                      cfg),
+            "roi_align": lambda: model.pool_boxes(pyramid, props.boxes),
             "box_head": lambda: model.roi_heads(flat),
             "postprocess": lambda: rh.postprocess_detections(
                 cls.reshape(b, p, -1), reg.reshape(b, p, -1), props.boxes,
@@ -1029,7 +1074,12 @@ def device_profile(torch, run, reps=3, unit="forward"):
                 for key, us, count in ops]}
 
 
-def serve_slice(torch, card, dev, cfg, captured):
+def serve_slice(torch, card, dev, cfg, captured, model="faster"):
+    """``cfg``'s model (``model``, one of ``MODELS``: "faster", or
+    "faster_v2" for the ``v2_serve`` phase) with seeded random weights,
+    saved as a model directory and served by ``DetectionServer(batch_size=
+    4)`` behind HTTP to 8 client threads; each batch must launch K1 twice
+    and K2 once.  Then its breakdown line.  Returns the launches."""
     from podtpu_torch.infer.server import DetectionServer, make_handler
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build, nms
@@ -1042,11 +1092,11 @@ def serve_slice(torch, card, dev, cfg, captured):
     images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
               for _ in range(threads * per_thread)]
     with tempfile.TemporaryDirectory() as model_dir:
-        model = make_detector(cfg)
-        init_parameters(model, torch.Generator().manual_seed(SEED))
-        save_model(model_dir, model, cfg, labels)
+        net = make_detector(cfg)
+        init_parameters(net, torch.Generator().manual_seed(SEED))
+        save_model(model_dir, net, cfg, labels)
         save_labels(model_dir, labels)
-        del model
+        del net
         t0 = time.perf_counter()
         server = DetectionServer(model_dir, batch_size=4, device=dev)
         load_s = time.perf_counter() - t0
@@ -1097,14 +1147,15 @@ def serve_slice(torch, card, dev, cfg, captured):
             batches = server.batches_served - served0
             lat = sorted(server.batch_seconds)
             stages = stage_breakdown(torch, server.model, images[:4])
-            x = torch.from_numpy(np.stack(images[:4])).cuda()
+            x = torch.from_numpy(np.stack(images[:4])).to(dev)
 
             def forward():
                 with torch.inference_mode():
                     server.model(x)
 
             prof = device_profile(torch, forward)
-            captured.append(("serve", capture_nms(nms, forward)))
+            captured.append((phase_name(model, "serve"),
+                             capture_nms(nms, forward)))
         finally:
             httpd.shutdown()
             http_thread.join(timeout=30)
@@ -1119,11 +1170,8 @@ def serve_slice(torch, card, dev, cfg, captured):
             assert 0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h, d
             assert np.isfinite(d["score"]) and d["label"] in labels, d
         n_det += len(r["detections"])
-    for name in ("nms", "roi_align_fwd"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched while "
-                                 "serving")
-    rec = {"phase": "slice", "model": "faster_rcnn_resnet50_fpn",
+    rec = {"phase": "slice" if model == "faster"
+           else phase_name(model, "serve"), "model": model_title(model),
            "image_size": list(cfg.image_size),
            "compute_dtype": cfg.compute_dtype, "batch_size": 4,
            "requests": len(images), "client_threads": threads,
@@ -1138,8 +1186,13 @@ def serve_slice(torch, card, dev, cfg, captured):
                                   for k, v in launches.items()},
            "card": card}
     emit(rec)
-    emit({"phase": "breakdown", "batch_size": 4, "stages_ms": stages,
-          "profile": prof, "card": card})
+    emit({"phase": phase_name(model, "breakdown"), "batch_size": 4,
+          "stages_ms": stages, "profile": prof, "card": card})
+    for name, per_batch in (("nms", 2), ("roi_align_fwd", 1)):
+        if launches.get(name, 0) != per_batch * batches:
+            raise AssertionError(f"kernel {name} launched {launches.get(name)}"
+                                 f" times in {batches} batches, expected "
+                                 f"{per_batch} a batch")
     return launches
 
 
@@ -1249,7 +1302,7 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     The two card runs share their forward, so K3 against its plain
     version is held to LIMITS_K3_VS_PLAIN.  The mask and keypoint models
     are held to the same limits."""
-    from podtpu_torch.core.config import Config, ModelConfig
+    from podtpu_torch.core.config import Config, DataConfig, ModelConfig
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
     from podtpu_torch.train.optim import make_optimizer
@@ -1261,7 +1314,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
                        rpn_post_nms_topk_train=128, box_batch_per_image=32,
                        max_gt_boxes=8, compute_dtype="float32", num_classes=4,
                        **model_kwargs(model))
-    cfg = Config(model=mcfg)
+    cfg = Config(model=mcfg, data=DataConfig(
+        aug_policy=MODEL_POLICY.get(model, "miso")))
 
     def run(seed, batch, draws, device, swap):
         model = make_detector(mcfg)
@@ -1328,7 +1382,7 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
         rec["k3_vs_plain_k3"] = compare(plain, k3)
         if not (within(rec["k3"], vs_cpu) and within(rec["plain_k3"], vs_cpu)
                 and within(rec["k3_vs_plain_k3"], LIMITS_K3_VS_PLAIN)
-                and k3[3] == (1 if model == "faster" else 2)
+                and k3[3] == (1 if head_of(model) is None else 2)
                 and plain[3] == 0):
             bad.append(seed)
         emit(rec)
@@ -1366,8 +1420,9 @@ def train_breakdown(torch, model, optimizer, cfg, batch, gen, reps=5):
 
 def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
                 extra_steps=3):
-    """Training at the ``TrainConfig`` defaults (batch 2, SGD, miso) on
-    four seeded synthetic batches of 1-30 gt boxes; for ``model`` "mask",
+    """Training at the ``TrainConfig`` defaults (batch 2, SGD, miso; the v2
+    models under ``MODEL_POLICY``) on four seeded synthetic batches of 1-30
+    gt boxes; for ``model`` "mask" (or "mask_v2"),
     Mask R-CNN, each gt holding an ellipse mask target at 1/8 of the
     canvas; for "keypoint", Keypoint R-CNN at the ``ModelConfig`` defaults
     (17 keypoints, a 512-channel head, 2 classes, the COCO flip
@@ -1382,7 +1437,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     too) and a profiler window.  Returns the launches, the images/s and
     ``replay``, which runs one more step on the first batch (for the
     keypoint model also ``replay_expand``, the same at 1.3)."""
-    from podtpu_torch.core.config import Config, ModelConfig
+    from podtpu_torch.core.config import Config, DataConfig, ModelConfig
     from podtpu_torch.infer.inference import load_inference_model
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
@@ -1390,12 +1445,14 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     from podtpu_torch.train.optim import make_optimizer
     from podtpu_torch.train.step import images_to_float, make_train_step
 
-    kps = model == "keypoint"
+    head = head_of(model)
+    kps = head == "keypoint"
     cfg = Config(model=ModelConfig(**({} if kps else dict(num_classes=4)),
-                                   **model_kwargs(model)))
+                                   **model_kwargs(model)),
+                 data=DataConfig(aug_policy=MODEL_POLICY.get(model, "miso")))
     mcfg = cfg.model
     prefix = phase_name(model, "")
-    loss_name = {"mask": "loss_mask", "keypoint": "loss_keypoint"}.get(model)
+    loss_name = {"mask": "loss_mask", "keypoint": "loss_keypoint"}.get(head)
     labels = ["radiolarian", "foraminifera", "diatom"]
     net = make_detector(mcfg)
     init_parameters(net, torch.Generator().manual_seed(SEED))
@@ -1405,7 +1462,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     rng = np.random.default_rng(SEED)
     batches = [synthetic_batch(rng, cfg.train.batch_size, mcfg.image_size,
                                mcfg.max_gt_boxes) for _ in range(4)]
-    if model == "mask":
+    if head == "mask":
         batches = [dict(b, masks=ellipse_masks(b["boxes"], b["valid"],
                                                mcfg.image_size))
                    for b in batches]
@@ -1420,8 +1477,8 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
         m = step(batches[i % len(batches)], lr, generator=gen)
         assert all(np.isfinite(float(v)) for v in m.values()), m
     warm_s = time.perf_counter() - t0
-    per_step = {"nms": 1, "roi_align_fwd": 1 + (model != "faster"),
-                "roi_align_bwd": 1 + (model != "faster")}
+    per_step = {"nms": 1, "roi_align_fwd": 1 + (head is not None),
+                "roi_align_bwd": 1 + (head is not None)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1451,7 +1508,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     launches = {k: _build.launches[k] for k in per_step}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lat = sorted(step_s)
-    rec = {"phase": prefix + "train", "model": f"{model}_rcnn_resnet50_fpn",
+    rec = {"phase": prefix + "train", "model": model_title(model),
            "image_size": list(mcfg.image_size),
            "compute_dtype": mcfg.compute_dtype,
            "batch_size": cfg.train.batch_size,
@@ -1469,7 +1526,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
            "card": card}
 
     out = {}
-    if model == "mask":
+    if head == "mask":
         cp_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, copy_paste=True))
         cp_step = make_train_step(net, optimizer, cp_cfg, device=dev)
@@ -1529,7 +1586,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     emit(rec)
 
     parts = train_breakdown(torch, net, optimizer, cfg, batches[0], gen)
-    if model != "faster":
+    if head:
         dev_batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in batches[0].items()}
         parts.update(branch_ms(torch, net, model,
@@ -2260,10 +2317,11 @@ def model_batch(model, rng, b, size, max_gt, **kw):
     """``synthetic_batch`` with the targets of ``model``'s extra head: an
     ellipse mask per gt, or 17 keypoints (drawn after the batch, so the
     boxes are those of the same ``rng`` without them)."""
-    if model == "mask":
+    if head_of(model) == "mask":
         return synthetic_mask_batch(rng, b, size, max_gt, **kw)
     batch = synthetic_batch(rng, b, size, max_gt, **kw)
-    return with_keypoints(batch, rng) if model == "keypoint" else batch
+    return with_keypoints(batch, rng) if head_of(model) == "keypoint" \
+        else batch
 
 
 def capture_roi_align_bwd(run, output_size, limit=1):
@@ -2402,7 +2460,7 @@ def branch_ms(torch, net, model, images, batch, cfg):
                                  batch["labels"], batch["valid"], mcfg,
                                  draws.roi_pos, draws.roi_neg)
     pyramid = [f.detach().requires_grad_() for f in pyramid]
-    if model == "mask":
+    if head_of(model) == "mask":
         rois, size, run_head = (sampled.boxes, mcfg.mask_pool_size,
                                 net.roi_heads.mask_logits)
 
@@ -2762,6 +2820,117 @@ def head_driver_phase(torch, card, dev, model="mask", config=None,
             f"{model}_infer": infer_launches}
 
 
+def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
+                    n_images=24, n_infer=8):
+    """``train(family="faster_rcnn_v2")`` under ``lsj`` at the ``Config()``
+    defaults on the driver phase's 24 in-memory images for 2 epochs; the
+    model directory keeps the family ``faster_rcnn`` with the v2 fields.
+    Then ``evaluate_model`` on its 4 test images, ``infer`` on ``n_infer``
+    unlabelled images at the median of their best scores, which must keep
+    boxes, and one ``DetectionServer`` batch of the four images with the
+    best scores.  Per-epoch seconds and images/s; K3 once per step, K1 and
+    K2 at least once per step and eval batch.  Returns the launches by
+    path."""
+    from podtpu_torch.core.config import Config
+    from podtpu_torch.data import Project, imageio
+    from podtpu_torch.data.dataset import train_test_split
+    from podtpu_torch.infer import inference
+    from podtpu_torch.infer.server import DetectionServer
+    from podtpu_torch.train import train as driver
+
+    images, metas = in_memory_images(np.random.default_rng(SEED + 8),
+                                     n_images, size)
+    unlabelled, infer_metas = in_memory_images(
+        np.random.default_rng(SEED + 9), n_infer, size, with_boxes=False)
+    images.update(unlabelled)
+    project, infer_project, test_project = Project(), Project(), Project()
+    for m in metas:
+        project.add_image(m)
+    for m in infer_metas:
+        infer_project.add_image(m)
+    _, test_idx = train_test_split(len(metas), 0.2, 1)
+    for i in test_idx:
+        test_project.add_image(metas[int(i)])
+    config = config or Config()
+    config = dataclasses.replace(config, data=dataclasses.replace(
+        config.data, aug_policy="lsj"))
+    tmp = tempfile.mkdtemp(prefix="podtpu_v2_")
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, launches, rec, seconds = driven(
+            torch, driver, driver.train, project, output_dir=tmp, name="v2",
+            batch_size=2, seed=0, config=config, device=dev, max_epochs=2,
+            family="faster_rcnn_v2")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats, evaluated, _, eval_s = driven(
+            torch, driver, driver.evaluate_model, test_project, model_dir,
+            batch_size=2, device=dev)
+        with contextlib.redirect_stdout(sys.stderr):
+            forward, _, stored, _ = inference.load_inference_model(
+                model_dir, dev)
+            det = forward(np.stack([images[m.full_path]
+                                    for m in infer_metas]))
+            best = torch.where(det.valid, det.scores, torch.zeros_like(
+                det.scores)).amax(1).cpu()
+            order = [infer_metas[int(i)] for i in best.argsort(
+                descending=True)]
+            best = best[best > 0]
+            threshold = float(best.median()) - 1e-6 if len(best) else 0.0
+            del forward, det
+        result, infer_launches, _, infer_s = driven(
+            torch, driver, inference.infer, infer_project, model_dir,
+            threshold=threshold, batch_size=4, device=dev)
+        server = DetectionServer(model_dir, batch_size=4, device=dev)
+        try:
+            served = [server.detect_array(images[m.full_path], threshold)
+                      for m in order[:4]]
+        finally:
+            server.close()
+    finally:
+        imageio.read_rgb = read_rgb
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sum(e["steps"] for e in rec["epochs"])
+    eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
+    kept = sum(len(b) for b in kept_boxes(result, infer_metas))
+    served_dets = sum(len(r["detections"]) for r in served)
+    v2_fields = {k: getattr(stored, k) for k in (
+        "family", "rpn_conv_depth", "box_head_type", "fpn_norm",
+        "mask_head_norm")}
+    emit({"phase": "v2_driver", "model": model_title("faster_v2"),
+          "image_size": list(size), "images": n_images,
+          "aug_policy": config.data.aug_policy, "stored_config": v2_fields,
+          "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
+          "train_call_s": seconds,
+          "epoch_losses": [e["loss"] for e in rec["epochs"]],
+          "evaluate_model_s": eval_s, "evaluate_model_stats": stats,
+          "best_threshold": threshold, "infer_s": infer_s,
+          "infer_kept_boxes": kept, "served_detections": served_dets,
+          "launches": {"train": launches, "evaluate_model": evaluated,
+                       "infer": infer_launches},
+          "peak_memory_gib": peak, "card": card})
+    bad = []
+    if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
+        bad.append("a train loss is not finite")
+    if len(stats) != 12 or not all(-1 <= v <= 1 for v in stats):
+        bad.append(f"stats {stats}")
+    if v2_fields != dict(family="faster_rcnn", rpn_conv_depth=2,
+                         box_head_type="convfc", fpn_norm=True,
+                         mask_head_norm=True):
+        bad.append(f"stored config {v2_fields}")
+    if not kept or not served_dets:
+        bad.append(f"infer kept {kept} boxes, the server returned "
+                   f"{served_dets} at the median best score")
+    if bad:
+        raise AssertionError(f"v2 driver: {bad}")
+    check_driver_launches("v2_driver", launches, steps, eval_batches)
+    check_driver_launches("v2_evaluate_model", evaluated, 0,
+                          -(-len(test_idx) // 2))
+    return {"v2_driver": launches, "v2_evaluate_model": evaluated,
+            "v2_infer": infer_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2787,7 +2956,7 @@ def main() -> int:
 
     native_built = native_build_line()
 
-    from podtpu_torch.core.config import ModelConfig
+    from podtpu_torch.core.config import ModelConfig, fasterrcnn_v2_config
 
     nms_rec = check_nms(torch, nms, "cuda")
     roi_rec = check_roi_align(torch, roi_align, "cuda")
@@ -2800,8 +2969,12 @@ def main() -> int:
     captured = []
     serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4),
                         captured)
-    for model in MODELS:
+    serve_v2 = serve_slice(torch, card, "cuda", fasterrcnn_v2_config(
+        ModelConfig(num_classes=4)), captured, model="faster_v2")
+    for model in ("faster", "mask", "keypoint"):
         check_train_reference(torch, "cuda", model=model)
+    check_train_reference(torch, "cuda", model="faster_v2",
+                          seeds=range(SEED, SEED + 2))
     train = train_slice(torch, card, "cuda")
     captured.append(("train", capture_nms(nms, train.pop("replay"))))
     tmp, model_dir, driver, (eval_nms, eval_roi) = driver_phase(
@@ -2826,6 +2999,16 @@ def main() -> int:
                  "keypoint_train_expand")
     kp_eval = head_eval_slice(torch, card, "cuda", head_captured, "keypoint")
     kp_driver = head_driver_phase(torch, card, "cuda", "keypoint")
+    v2_captured = {"k2": [], "k3": []}
+    v2_train = train_slice(torch, card, "cuda", model="faster_v2", timed=10)
+    capture_step(v2_train["replay"], ModelConfig().roi_pool_size,
+                 v2_captured, "v2_train")
+    captured.append(("v2_train", capture_nms(nms, v2_train.pop("replay"))))
+    mask_v2_train = train_slice(torch, card, "cuda", model="mask_v2",
+                                timed=5, extra_steps=0)
+    capture_step(mask_v2_train.pop("replay"), ModelConfig().mask_pool_size,
+                 head_captured, "mask_v2_train")
+    v2_driver = v2_driver_phase(torch, card, "cuda")
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)]
     check_nms_main_path(torch, nms, captured)
@@ -2837,6 +3020,12 @@ def main() -> int:
                                           head_captured["k3"])
     k2_14 = dict(zip((p for p, _ in head_captured["k2"]), k2_14))
     k3_14 = dict(zip((p for p, _ in head_captured["k3"]), k3_14))
+    k2_7 = dict(zip((p for p, _ in v2_captured["k2"]),
+                    check_roi_align_main_path(torch, roi_align,
+                                              v2_captured["k2"])))
+    k3_7 = dict(zip((p for p, _ in v2_captured["k3"]),
+                    check_roi_align_bwd_main_path(torch, roi_align,
+                                                  v2_captured["k3"])))
     if not k2_14["keypoint_train_expand"]["rois_crossing_canvas"] > 0:
         raise AssertionError("no RoI of the keypoint step at "
                              "keypoint_roi_expand 1.3 crosses the canvas")
@@ -2853,7 +3042,11 @@ def main() -> int:
                    **{k: v[name] for k, v in mask_driver.items()},
                    "keypoint_train": kp_train["launches"].get(name, 0),
                    "keypoint_eval": kp_eval.get(name, 0),
-                   **{k: v[name] for k, v in kp_driver.items()}}
+                   **{k: v[name] for k, v in kp_driver.items()},
+                   "v2_serve": serve_v2.get(name, 0),
+                   "v2_train": v2_train["launches"].get(name, 0),
+                   "mask_v2_train": mask_v2_train["launches"].get(name, 0),
+                   **{k: v[name] for k, v in v2_driver.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 
@@ -2880,7 +3073,8 @@ def main() -> int:
              plain_ms=roi_rec["plain_ms"], bound_ms=roi_rec["bound_ms"],
              bound_by=roi_rec["bound_by"], library_ms=None,
              by_output_size={
-                 "7": at(roi_rec, "serving_b4_k1000_c256_bf16"),
+                 "7": {**at(roi_rec, "serving_b4_k1000_c256_bf16"),
+                       **{p: at(r) for p, r in k2_7.items()}},
                  "14": {**at(k2_14["mask_train"]),
                         **{p: at(r) for p, r in k2_14.items()
                            if p != "mask_train"}}}),
@@ -2891,7 +3085,8 @@ def main() -> int:
              max_abs_err=bwd_rec["max_abs_err"], ms=bwd_rec["ms"],
              plain_ms=bwd_rec["plain_ms"], bound_ms=bwd_rec["bound_ms"],
              bound_by=bwd_rec["bound_by"], library_ms=None,
-             by_output_size={"7": at(bwd_rec, "train_b2_k512_c256_bf16"),
+             by_output_size={"7": {**at(bwd_rec, "train_b2_k512_c256_bf16"),
+                                   **{p: at(r) for p, r in k3_7.items()}},
                              "14": {**at(k3_14["mask_train"]),
                                     **{p: at(r) for p, r in k3_14.items()
                                        if p != "mask_train"}}}),

@@ -180,8 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("--family", choices=["faster_rcnn", "faster_rcnn_v2", "retinanet",
                                "retinanet_v2", "fcos", "ssd", "ssdlite"],
           default="faster_rcnn",
-          help="Detector family: faster_rcnn trains; the others wait for "
-               "ROADMAP.md items 12 to 14")
+          help="Detector family: faster_rcnn and faster_rcnn_v2 (the v2 "
+               "recipe's heads) train; the others wait for ROADMAP.md items "
+               "13 and 14")
     c.opt("--test-tasks",
           help="Comma-separated CVAT task ids held out for evaluation "
                "(default keeps the seeded 80/20 split)")

@@ -3,9 +3,10 @@
 Field-for-field copies of ``podtpu.core.config``'s ``ModelConfig``,
 ``TrainConfig``, ``DataConfig``, ``CvatConfig`` and ``Config``, so that a
 configuration written by either package loads in the other.  The port
-builds only the ``faster_rcnn`` / ``resnet50_fpn`` / ``box_head_type="mlp"``
-model so far (``models.detector.make_detector`` refuses the rest); the
-other fields are carried so that saved configurations round-trip unchanged.
+builds the ``faster_rcnn`` family on ``resnet50_fpn``, v1 and the v2
+recipe (:func:`fasterrcnn_v2_config`), so far
+(``models.detector.make_detector`` refuses the rest); the other fields are
+carried so that saved configurations round-trip unchanged.
 """
 from __future__ import annotations
 
@@ -140,6 +141,18 @@ class ModelConfig:
         return tuple(self.strides)
 
 
+def fasterrcnn_v2_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` (``ModelConfig()`` when None) with torchvision's
+    ``fasterrcnn_resnet50_fpn_v2`` heads (with ``with_mask=True``,
+    ``maskrcnn_resnet50_fpn_v2``'s): a 2-deep RPN tower, the
+    ``FastRCNNConvFCHead`` box head, frozen norms in the FPN and in the
+    mask tower; ``kw`` overrides any field."""
+    fields = dict(rpn_conv_depth=2, box_head_type="convfc", fpn_norm=True,
+                  mask_head_norm=True)
+    fields.update(kw)
+    return dataclasses.replace(cfg or ModelConfig(), **fields)
+
+
 # Left/right joint swap of the COCO person-17 skeleton under horizontal
 # flip (nose, then eye/ear/shoulder/elbow/wrist/hip/knee/ankle L-R pairs).
 COCO_17_HFLIP_INDS = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13,
@@ -197,8 +210,9 @@ class DataConfig:
 
     num_workers: int = 4
     prefetch: int = 2
-    # 'miso' (hflip + vflip + photometric distortion), 'hflip', 'none';
-    # 'lsj', 'multiscale', 'ssd', 'ssdlite' are not ported yet.
+    # 'miso' (hflip + vflip + photometric distortion), 'hflip', 'lsj'
+    # (scale jitter 0.1-2.0 + hflip), 'multiscale' (0.5-1.25 + hflip),
+    # 'none'; 'ssd' and 'ssdlite' are not ported yet.
     aug_policy: str = "miso"
     hflip_prob: float = 0.5
     vflip_prob: float = 0.5

@@ -1,22 +1,24 @@
 """Augmentation policies on the device, batched.
 
 Counterpart of ``podtpu/data/presets.py``: ``miso`` (hflip + vflip +
-photometric distortion, the reference pipeline's default), ``hflip`` and
-``none``.  A policy maps ``(images [B, H, W, 3] in [0, 1], boxes [B, G, 4],
-valid [B, G], draws, masks=None, keypoints=None)`` to the augmented
+photometric distortion, the reference pipeline's default), ``hflip``,
+``lsj`` (large-scale jitter: a resample at a scale drawn in 0.1-2.0, then
+hflip), ``multiscale`` (the same in 0.5-1.25) and ``none``.  A policy
+maps ``(images [B, H, W, 3] in [0, 1], boxes [B, G, 4], valid [B, G],
+draws, masks=None, keypoints=None)`` to the augmented
 ``(images, boxes, valid, masks, keypoints)``, with one decision per image;
 mask targets ``[B, G, Hm, Wm]`` and keypoints ``[B, G, K, 3]`` follow the
 flips (a horizontal flip also permutes the keypoints by ``kp_hflip_inds``,
 a chiral skeleton's left/right swap), and each stays None when none is
-given.  Its random numbers are the explicit tensors of
-:class:`AugmentDraws` (:func:`draw_augment` makes them from a
-``torch.Generator``).  The geometric policies wait for the models
-whose recipes they are: ``lsj`` and ``multiscale`` for item 12 (v2
-recipes), ``ssd`` and ``ssdlite`` for item 14 (SSD).
+given; the jitter resamples masks and moves keypoints with the image,
+and a keypoint that leaves the canvas becomes invisible.  Its random
+numbers are the explicit tensors of :class:`AugmentDraws`
+(:func:`draw_augment` makes them from a ``torch.Generator``).  ``ssd`` and
+``ssdlite`` wait for the model whose recipe they are: item 14 (SSD).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,24 +27,38 @@ from podtpu_torch.ops import image_ops as T
 AugmentFn = Callable
 
 # Policy -> the ROADMAP.md item that brings it.
-NOT_PORTED = {"lsj": "item 12: v2 recipes",
-              "multiscale": "item 12: v2 recipes",
-              "ssd": "item 14: SSD and the mobile trunks",
+NOT_PORTED = {"ssd": "item 14: SSD and the mobile trunks",
               "ssdlite": "item 14: SSD and the mobile trunks"}
+
+# The scale range of each scale-jitter policy (the JAX package's
+# ``T.scale_jitter`` ranges).
+SCALE_RANGES = {"lsj": (0.1, 2.0), "multiscale": (0.5, 1.25)}
 
 
 class AugmentDraws(NamedTuple):
     hflip: torch.Tensor                # [B] uniforms; flip where < prob
     vflip: torch.Tensor                # [B]
     photometric: T.PhotometricDraws
+    # [B] scales of a scale-jitter policy (None for the others).
+    scale: Optional[torch.Tensor] = None
 
 
-def draw_augment(generator: torch.Generator, batch: int) -> AugmentDraws:
+def draw_augment(generator: torch.Generator, batch: int,
+                 scale_range: Optional[Tuple[float, float]] = None
+                 ) -> AugmentDraws:
+    """One batch's draws on ``generator``'s device; with ``scale_range``
+    also a scale per image, uniform in it, drawn last."""
     dev = generator.device
     hf = torch.rand(batch, generator=generator, device=dev)
     vf = torch.rand(batch, generator=generator, device=dev)
-    return AugmentDraws(hflip=hf, vflip=vf,
-                        photometric=T.draw_photometric(generator, batch))
+    photometric = T.draw_photometric(generator, batch)
+    scale = None
+    if scale_range is not None:
+        lo, hi = scale_range
+        scale = lo + torch.rand(batch, generator=generator,
+                                device=dev) * (hi - lo)
+    return AugmentDraws(hflip=hf, vflip=vf, photometric=photometric,
+                        scale=scale)
 
 
 def _select(do: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -102,14 +118,36 @@ def hflip_policy(images, boxes, valid, draws: AugmentDraws, masks=None,
     return images, boxes, valid, masks, keypoints
 
 
+def scale_jitter_policy(images, boxes, valid, draws: AugmentDraws,
+                        masks=None, keypoints=None, kp_hflip_inds=None):
+    """``lsj`` and ``multiscale``: each image resampled by its
+    ``draws.scale`` (drawn in the policy's ``SCALE_RANGES``), then flipped
+    horizontally; boxes narrower or lower than 1 px become invalid."""
+    images, boxes, masks, keypoints = T.scale_jitter(
+        images, boxes, draws.scale, masks=masks, keypoints=keypoints)
+    images, boxes, masks, keypoints = _flips(
+        images, boxes, draws, vflip_prob=0.0, masks=masks,
+        keypoints=keypoints, kp_hflip_inds=kp_hflip_inds)
+    return images, boxes, _revalidate(boxes, valid), masks, keypoints
+
+
 def none_policy(images, boxes, valid, draws: AugmentDraws, masks=None,
                 keypoints=None, kp_hflip_inds=None):
     return images, boxes, valid, masks, keypoints
 
 
+def _revalidate(boxes, valid):
+    """Valid boxes that stay wider and higher than 1 px."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return valid & (w > 1.0) & (h > 1.0)
+
+
 POLICIES = {
     "miso": miso_policy,
     "hflip": hflip_policy,
+    "lsj": scale_jitter_policy,
+    "multiscale": scale_jitter_policy,
     "none": none_policy,
 }
 

@@ -2,8 +2,10 @@
 and training losses.
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
-``resnet50_fpn`` backbone with the MLP box head and, with ``with_mask``,
-the mask head or, with ``with_keypoints``, the keypoint head; and
+``resnet50_fpn`` backbone with the MLP box head or, in the v2 recipe
+(``core.config.fasterrcnn_v2_config``), the normed FPN, the 2-deep RPN
+tower and the ConvFC box head; with ``with_mask`` the mask head (normed in
+v2) or, with ``with_keypoints``, the keypoint head; and
 ``make_detector``).
 The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
 the JAX model, normalises them in float32 and runs the network on NCHW
@@ -52,25 +54,27 @@ class FasterRCNN(nn.Module):
             ResNet((3, 4, 6, 3), compute_dtype=dt,
                    trainable_stages=cfg.trainable_backbone_stages),
             FeaturePyramidNetwork((256, 512, 1024, 2048), cfg.fpn_channels,
-                                  compute_dtype=dt))
+                                  compute_dtype=dt, norm=cfg.fpn_norm))
         anchors = grid_anchors(tuple(cfg.image_size), tuple(cfg.strides),
                                tuple(cfg.anchor_sizes),
                                tuple(cfg.anchor_ratios))
         self.rpn = rpn_lib.RegionProposalNetwork(
             rpn_lib.RPNHead(cfg.fpn_channels, cfg.anchors_per_location,
-                            compute_dtype=dt), anchors)
+                            compute_dtype=dt, conv_depth=cfg.rpn_conv_depth),
+            anchors)
+        box_kw = dict(compute_dtype=dt, box_head_type=cfg.box_head_type)
         if cfg.with_mask:
             self.roi_heads = rh.BoxMaskHead(
                 cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
-                cfg.mask_head_channels, compute_dtype=dt)
+                cfg.mask_head_channels, mask_norm=cfg.mask_head_norm,
+                **box_kw)
         elif cfg.with_keypoints:
             self.roi_heads = rh.BoxKeypointHead(
                 cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
-                cfg.num_keypoints, cfg.keypoint_head_channels,
-                compute_dtype=dt)
+                cfg.num_keypoints, cfg.keypoint_head_channels, **box_kw)
         else:
             self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
-                                        cfg.num_classes, compute_dtype=dt)
+                                        cfg.num_classes, **box_kw)
         self.register_buffer(
             "pixel_mean", torch.tensor(cfg.pixel_mean).view(1, 3, 1, 1),
             persistent=False)
@@ -108,7 +112,7 @@ class FasterRCNN(nn.Module):
                                 draws)
         proposals = rpn_lib.select_proposals(
             level_logits, level_deltas, self.rpn.anchors(), cfg, train=False)
-        pooled = rh.pool_rois_batched(pyramid, proposals.boxes, cfg)
+        pooled = self.pool_boxes(pyramid, proposals.boxes)
         b, p = pooled.shape[:2]
         logits, deltas = self.roi_heads(pooled.reshape(b * p,
                                                        *pooled.shape[2:]))
@@ -121,6 +125,14 @@ class FasterRCNN(nn.Module):
             return det, rh.KeypointOutput(self._predict_keypoints(pyramid,
                                                                   det))
         return det
+
+    def pool_boxes(self, pyramid, boxes):
+        """``[B, K, C, P, P]`` box-head features of ``[B, K, 4]`` boxes:
+        contiguous for the MLP head's flatten, channels_last planes for the
+        ConvFC head's convolutions."""
+        return rh.pool_rois_batched(
+            pyramid, boxes, self.cfg,
+            channels_last=self.cfg.box_head_type == "convfc")
 
     def _mask_logits(self, pyramid, boxes):
         """``[B, K, C, M, M]`` mask logits of ``[B, K, 4]`` boxes."""
@@ -182,7 +194,7 @@ class FasterRCNN(nn.Module):
         sampled = rh.sample_rois(proposals.boxes, proposals.valid,
                                  gt["boxes"], gt["labels"], gt["valid"], cfg,
                                  draws.roi_pos, draws.roi_neg)
-        pooled = rh.pool_rois_batched(pyramid, sampled.boxes, cfg)
+        pooled = self.pool_boxes(pyramid, sampled.boxes)
         b, s = pooled.shape[:2]
         logits, deltas = self.roi_heads(pooled.reshape(b * s,
                                                        *pooled.shape[2:]))
@@ -250,11 +262,6 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.backbone_norm != "frozen":
         return (f"backbone_norm={cfg.backbone_norm!r} (ROADMAP.md, item 14: "
                 "trainable BatchNorm comes with the mobile trunks)")
-    if cfg.box_head_type != "mlp" or cfg.rpn_conv_depth != 1 or cfg.fpn_norm:
-        return "the v2 recipe heads (ROADMAP.md, item 12: v2 recipes)"
-    if cfg.with_mask and cfg.mask_head_norm:
-        return ("mask_head_norm, the v2 normed mask tower (ROADMAP.md, item "
-                "12: v2 recipes)")
     if cfg.anchors_per_location != len(cfg.anchor_ratios) \
             or len(cfg.strides) != 5:
         return "anchor layouts other than one size per P2..P6 level"
@@ -264,12 +271,19 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
 def make_detector(cfg: ModelConfig) -> FasterRCNN:
     """The model for ``cfg``; raises ``NotImplementedError`` for what the
     port has not reached yet, naming the ROADMAP item that brings it, and
-    ``ValueError`` for a mask head beside a keypoint head."""
+    ``ValueError`` for a mask head beside a keypoint head or the v2 recipe
+    on another backbone than ResNet-50-FPN, as the JAX package does."""
     if cfg.with_mask and cfg.with_keypoints:
         raise ValueError(
             "with_mask and with_keypoints are mutually exclusive (the "
             "torchvision zoo has no combined model, and the inference "
             "output carries one extra head)")
+    if (cfg.rpn_conv_depth != 1 or cfg.box_head_type != "mlp"
+            or cfg.fpn_norm) and cfg.backbone != "resnet50_fpn":
+        raise ValueError(
+            "family='faster_rcnn_v2' requires the ResNet-50-FPN backbone "
+            "(torchvision has no v2 recipe for the mobilenet extractors, "
+            "and their FPN/head wiring differs)")
     missing = _unsupported(cfg)
     if missing is not None:
         raise NotImplementedError(f"podtpu_torch does not port {missing} "

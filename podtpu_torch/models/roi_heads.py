@@ -14,7 +14,11 @@ there), the keypoint codec (``keypoints_to_heatmap``, ``expand_rois``,
 ``keypoint_predictor.kps_score_lowres``).  fc6 consumes the
 pooled features flattened as (C, H, W), torchvision's order, so its weight
 is in torchvision layout; the JAX head flattens (H, W, C) and the weight
-bridge (``models/weights.py``) permutes between the two.
+bridge (``models/weights.py``) permutes between the two.  The v2 recipe's
+box head, :class:`FastRCNNConvFCHead` (JAX's ``ConvFCBoxHead``), and its
+normed mask tower (JAX's ``MaskHead(norm=True)``) carry torchvision v2's
+names (``box_head.{0..3}.{0,1}``, ``box_head.5``, ``mask_head.{0..3}.{0,1}``);
+the ConvFC head's Linear flattens (C, H, W) as fc6 does.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from podtpu_torch.core.config import ModelConfig
+from podtpu_torch.models.fpn import conv_block
 from podtpu_torch.models.resnet import Conv2d
 from podtpu_torch.models.rpn import smooth_l1
 from podtpu_torch.ops import boxes as box_ops
@@ -56,7 +61,34 @@ class TwoMLPHead(nn.Module):
         self.fc7 = Linear(hidden, hidden, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.flatten(1)  # a view of contiguous pooled features
         return F.relu(self.fc7(F.relu(self.fc6(x))))
+
+
+def conv_norm_relu(cin: int, cout: int,
+                   compute_dtype: torch.dtype) -> nn.Sequential:
+    """3x3 convolution without bias, frozen BatchNorm, ReLU (torchvision's
+    ``Conv2dNormActivation``: ``.0``, ``.1``, ``.2``)."""
+    return nn.Sequential(*conv_block(cin, cout, 3, True, compute_dtype),
+                         nn.ReLU())
+
+
+class FastRCNNConvFCHead(nn.Sequential):
+    """Four ``conv_norm_relu`` blocks at ``channels``, then the features
+    flattened as (C, H, W) and a Linear to ``hidden`` with a ReLU
+    (torchvision's ``FastRCNNConvFCHead``: blocks 0-3, ``Flatten`` at 4,
+    the Linear at 5)."""
+
+    def __init__(self, in_channels: int, pool_size: int,
+                 channels: int = 256, hidden: int = 1024,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(
+            *(conv_norm_relu(in_channels if i == 0 else channels, channels,
+                             compute_dtype) for i in range(4)),
+            nn.Flatten(),
+            Linear(channels * pool_size ** 2, hidden,
+                   compute_dtype=compute_dtype),
+            nn.ReLU())
 
 
 class FastRCNNPredictor(nn.Module):
@@ -73,21 +105,28 @@ class FastRCNNPredictor(nn.Module):
 
 
 class BoxHead(nn.Module):
-    """TwoMLPHead + predictor over ``[N, C, P, P]`` pooled features ->
-    float32 class logits ``[N, classes]`` and deltas ``[N, classes*4]``."""
+    """The box head (``box_head_type`` "mlp": TwoMLPHead; "convfc":
+    FastRCNNConvFCHead) and the predictor over ``[N, C, P, P]`` pooled
+    features -> float32 class logits ``[N, classes]`` and deltas ``[N,
+    classes*4]``."""
 
     def __init__(self, channels: int, pool_size: int, num_classes: int,
                  hidden: int = 1024,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 box_head_type: str = "mlp"):
         super().__init__()
-        self.box_head = TwoMLPHead(channels * pool_size ** 2, hidden,
-                                   compute_dtype)
+        if box_head_type == "convfc":
+            self.box_head = FastRCNNConvFCHead(channels, pool_size,
+                                               channels, hidden,
+                                               compute_dtype)
+        else:
+            self.box_head = TwoMLPHead(channels * pool_size ** 2, hidden,
+                                       compute_dtype)
         self.box_predictor = FastRCNNPredictor(hidden, num_classes,
                                                compute_dtype)
 
     def forward(self, pooled: torch.Tensor):
-        x = pooled.flatten(1)  # a view of contiguous pooled features
-        logits, deltas = self.box_predictor(self.box_head(x))
+        logits, deltas = self.box_predictor(self.box_head(pooled))
         return logits.float(), deltas.float()
 
 
@@ -125,6 +164,17 @@ class MaskRCNNHeads(nn.Module):
         return x
 
 
+class MaskRCNNNormHeads(nn.Sequential):
+    """The v2 mask tower: four ``conv_norm_relu`` blocks (torchvision's
+    ``MaskRCNNHeads`` with a norm layer, ``mask_head.{i}.{0,1}``)."""
+
+    def __init__(self, in_channels: int, channels: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(*(conv_norm_relu(in_channels if i == 0 else channels,
+                                          channels, compute_dtype)
+                           for i in range(4)))
+
+
 class MaskRCNNPredictor(nn.Module):
     """2x2 stride-2 transposed convolution and ReLU, then a 1x1 convolution
     to one logit plane per class (torchvision's ``MaskRCNNPredictor``)."""
@@ -149,11 +199,12 @@ class BoxMaskHead(BoxHead):
 
     def __init__(self, channels: int, pool_size: int, num_classes: int,
                  mask_channels: int = 256, hidden: int = 1024,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 box_head_type: str = "mlp", mask_norm: bool = False):
         super().__init__(channels, pool_size, num_classes, hidden,
-                         compute_dtype)
-        self.mask_head = MaskRCNNHeads(channels, mask_channels,
-                                       compute_dtype)
+                         compute_dtype, box_head_type)
+        self.mask_head = (MaskRCNNNormHeads if mask_norm else MaskRCNNHeads)(
+            channels, mask_channels, compute_dtype)
         self.mask_predictor = MaskRCNNPredictor(mask_channels, num_classes,
                                                 compute_dtype)
 
@@ -203,9 +254,10 @@ class BoxKeypointHead(BoxHead):
     def __init__(self, channels: int, pool_size: int, num_classes: int,
                  num_keypoints: int, keypoint_channels: int = 512,
                  hidden: int = 1024,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 box_head_type: str = "mlp"):
         super().__init__(channels, pool_size, num_classes, hidden,
-                         compute_dtype)
+                         compute_dtype, box_head_type)
         self.keypoint_head = KeypointRCNNHeads(channels, keypoint_channels,
                                                compute_dtype)
         self.keypoint_predictor = KeypointRCNNPredictor(

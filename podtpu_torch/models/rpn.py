@@ -27,14 +27,23 @@ from podtpu_torch.ops.nms import NEG_INF, nms_keep_segments
 
 class RPNHead(nn.Module):
     """3x3 conv + ReLU, then 1x1 objectness (``cls_logits``, A channels) and
-    box deltas (``bbox_pred``, 4A channels), shared by every level."""
+    box deltas (``bbox_pred``, 4A channels), shared by every level.  With
+    ``conv_depth`` > 1 (the v2 recipe) the tower is that many 3x3 convs,
+    each followed by a ReLU, under torchvision v2's names ``conv.{d}.0``."""
 
     def __init__(self, channels: int, num_anchors: int,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv_depth: int = 1):
         super().__init__()
         kw = dict(compute_dtype=compute_dtype)
         self.num_anchors = num_anchors
-        self.conv = Conv2d(channels, channels, 3, padding=1, **kw)
+        if conv_depth == 1:
+            self.conv = Conv2d(channels, channels, 3, padding=1, **kw)
+        else:
+            self.conv = nn.Sequential(*(
+                nn.Sequential(Conv2d(channels, channels, 3, padding=1, **kw),
+                              nn.ReLU())
+                for _ in range(conv_depth)))
         self.cls_logits = Conv2d(channels, num_anchors, 1, **kw)
         self.bbox_pred = Conv2d(channels, num_anchors * 4, 1, **kw)
 
@@ -44,7 +53,9 @@ class RPNHead(nn.Module):
         logits, deltas = [], []
         a = self.num_anchors
         for f in features:
-            t = F.relu(self.conv(f))
+            t = self.conv(f)
+            if isinstance(self.conv, Conv2d):
+                t = F.relu(t)
             obj = self.cls_logits(t)                       # [B, A, H, W]
             dlt = self.bbox_pred(t)                        # [B, 4A, H, W]
             b, _, h, w = obj.shape

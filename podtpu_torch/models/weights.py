@@ -16,9 +16,18 @@ exact inverse.  The transforms are those of
   the dilated input: the layer computes the same either way);
 * frozen BatchNorm ``weight/bias/mean/var`` <-> the buffers
   ``weight/bias/running_mean/running_var``.
+
+The v2 recipe's tensors follow the JAX package's
+``fasterrcnn_v2_key_map``: the FPN's convolutions ``inner_blocks.i.0`` with
+their norms ``.1`` (flax ``fpn/lateral{i+2}`` and ``lateral{i+2}_bn``), the
+RPN tower ``rpn.head.conv.{d}.0`` (``rpn_head/conv``, ``conv2``, ...), the
+ConvFC box head ``box_head.{i}.{0,1}`` (``box_head/conv{i+1}``,
+``bn{i+1}``) and its Linear ``box_head.5`` (``box_head/fc``, permuted as
+fc6), and the normed mask tower ``mask_head.{i}.{0,1}``.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -41,12 +50,25 @@ def _layer(port: str, flax: str, kind: str,
     return out
 
 
-def key_map(with_mask: bool = False, with_keypoints: bool = False
+def _norm_layer(port: str, flax: str,
+                norm: bool) -> List[Tuple[str, str, str, str]]:
+    """A convolution that, with ``norm``, has no bias and a frozen BatchNorm
+    after it (``port.0``, ``port.1``; flax ``flax`` and ``flax_bn``)."""
+    if not norm:
+        return _layer(port, flax, "conv")
+    return (_layer(f"{port}.0", flax, "conv", bias=False)
+            + _bn(f"{port}.1", f"{flax}_bn"))
+
+
+def key_map(with_mask: bool = False, with_keypoints: bool = False,
+            rpn_conv_depth: int = 1, box_head_type: str = "mlp",
+            fpn_norm: bool = False, mask_head_norm: bool = False
             ) -> List[Tuple[str, str, str, str]]:
     """``(port key, flax collection, flax path, kind)`` for every tensor of
     the Faster R-CNN ResNet-50-FPN detector with the MLP box head and, with
     ``with_mask``, Mask R-CNN's mask head, with ``with_keypoints`` Keypoint
-    R-CNN's keypoint head."""
+    R-CNN's keypoint head; the other arguments are the ``ModelConfig``
+    fields of the v2 recipe."""
     m = _layer("backbone.body.conv1", "backbone/conv1", "conv", bias=False)
     m += _bn("backbone.body.bn1", "backbone/bn1")
     for stage, blocks in enumerate(STAGE_SIZES, start=1):
@@ -62,21 +84,38 @@ def key_map(with_mask: bool = False, with_keypoints: bool = False
                             "conv", bias=False)
                 m += _bn(f"{port}.downsample.1", f"{flax}/bn_down")
     for i in range(4):
-        m += _layer(f"backbone.fpn.inner_blocks.{i}", f"fpn/lateral{i + 2}",
-                    "conv")
-        m += _layer(f"backbone.fpn.layer_blocks.{i}", f"fpn/post{i + 2}",
-                    "conv")
-    m += _layer("rpn.head.conv", "rpn_head/conv", "conv")
+        m += _norm_layer(f"backbone.fpn.inner_blocks.{i}",
+                         f"fpn/lateral{i + 2}", fpn_norm)
+        m += _norm_layer(f"backbone.fpn.layer_blocks.{i}",
+                         f"fpn/post{i + 2}", fpn_norm)
+    if rpn_conv_depth == 1:
+        m += _layer("rpn.head.conv", "rpn_head/conv", "conv")
+    else:
+        for d in range(rpn_conv_depth):
+            m += _layer(f"rpn.head.conv.{d}.0",
+                        "rpn_head/conv" + (str(d + 1) if d else ""), "conv")
     m += _layer("rpn.head.cls_logits", "rpn_head/objectness", "conv")
     m += _layer("rpn.head.bbox_pred", "rpn_head/deltas", "conv")
-    m += _layer("roi_heads.box_head.fc6", "box_head/fc6", "fc6")
-    m += _layer("roi_heads.box_head.fc7", "box_head/fc7", "dense")
+    if box_head_type == "convfc":
+        for i in range(4):
+            m += _layer(f"roi_heads.box_head.{i}.0", f"box_head/conv{i + 1}",
+                        "conv", bias=False)
+            m += _bn(f"roi_heads.box_head.{i}.1", f"box_head/bn{i + 1}")
+        m += _layer("roi_heads.box_head.5", "box_head/fc", "fc6")
+    else:
+        m += _layer("roi_heads.box_head.fc6", "box_head/fc6", "fc6")
+        m += _layer("roi_heads.box_head.fc7", "box_head/fc7", "dense")
     m += _layer("roi_heads.box_predictor.cls_score", "box_head/cls", "dense")
     m += _layer("roi_heads.box_predictor.bbox_pred", "box_head/reg", "dense")
     if with_mask:
         for i in range(1, 5):
-            m += _layer(f"roi_heads.mask_head.mask_fcn{i}",
-                        f"mask_head/conv{i}", "conv")
+            if mask_head_norm:
+                m += _layer(f"roi_heads.mask_head.{i - 1}.0",
+                            f"mask_head/conv{i}", "conv", bias=False)
+                m += _bn(f"roi_heads.mask_head.{i - 1}.1", f"mask_head/bn{i}")
+            else:
+                m += _layer(f"roi_heads.mask_head.mask_fcn{i}",
+                            f"mask_head/conv{i}", "conv")
         m += _layer("roi_heads.mask_predictor.conv5_mask", "mask_head/deconv",
                     "deconv")
         m += _layer("roi_heads.mask_predictor.mask_fcn_logits",
@@ -135,15 +174,44 @@ def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
     return np.ascontiguousarray(v)
 
 
+def _flax_layout(params: Dict, frozen: Dict) -> Dict:
+    """``key_map``'s arguments for the model whose flax trees these are."""
+    rpn = params.get("rpn_head", {})
+    return dict(with_mask="mask_head" in params,
+                with_keypoints="keypoint_head" in params,
+                rpn_conv_depth=1 + sum(re.fullmatch(r"conv\d+", k) is not None
+                                       for k in rpn),
+                box_head_type="convfc" if "fc" in params.get("box_head", {})
+                else "mlp",
+                fpn_norm="lateral2_bn" in frozen.get("fpn", {}),
+                mask_head_norm="bn1" in frozen.get("mask_head", {}))
+
+
+def _state_dict_layout(state_dict: Dict) -> Dict:
+    """``key_map``'s arguments for the model whose state dict this is."""
+    depth = 1
+    while f"rpn.head.conv.{depth}.0.weight" in state_dict:
+        depth += 1
+    return dict(
+        with_mask="roi_heads.mask_predictor.conv5_mask.weight" in state_dict,
+        with_keypoints=("roi_heads.keypoint_predictor.kps_score_lowres."
+                        "weight" in state_dict),
+        rpn_conv_depth=depth,
+        box_head_type="convfc" if "roi_heads.box_head.5.weight" in state_dict
+        else "mlp",
+        fpn_norm="backbone.fpn.inner_blocks.0.1.weight" in state_dict,
+        mask_head_norm="roi_heads.mask_head.0.1.weight" in state_dict)
+
+
 def state_dict_from_flax(params: Dict, frozen: Dict,
                          pool_size: int = 7) -> Dict[str, np.ndarray]:
     """The port's state dict (numpy arrays) from flax ``params``/``frozen``
-    trees (with the mask or keypoint head when ``params`` has one); raises
-    ``KeyError`` naming a missing tree entry."""
+    trees (with the mask or keypoint head when ``params`` has one, and the
+    v2 recipe's layers where the trees have them); raises ``KeyError``
+    naming a missing tree entry."""
     trees = {"params": params, "frozen": frozen}
     sd = {}
-    for key, coll, path, kind in key_map("mask_head" in params,
-                                         "keypoint_head" in params):
+    for key, coll, path, kind in key_map(**_flax_layout(params, frozen)):
         try:
             value = _get(trees[coll], path)
         except KeyError:
@@ -157,12 +225,9 @@ def flax_from_state_dict(state_dict: Dict,
                          pool_size: int = 7) -> Tuple[Dict, Dict]:
     """``(params, frozen)`` flax trees of numpy arrays from the port's state
     dict (tensors or arrays), with the mask or keypoint head when it has
-    one."""
+    one, and the v2 recipe's layers where it has them."""
     trees: Dict[str, Dict] = {"params": {}, "frozen": {}}
-    with_mask = "roi_heads.mask_predictor.conv5_mask.weight" in state_dict
-    with_kps = ("roi_heads.keypoint_predictor.kps_score_lowres.weight"
-                in state_dict)
-    for key, coll, path, kind in key_map(with_mask, with_kps):
+    for key, coll, path, kind in key_map(**_state_dict_layout(state_dict)):
         value = state_dict[key]
         if hasattr(value, "detach"):
             value = value.detach().cpu().numpy()
@@ -190,14 +255,35 @@ def _unflatten(flat: Dict[Tuple, object]) -> Dict:
     return tree
 
 
-def _torchvision_alias(key: str) -> str:
-    """The port's name for a torchvision key that newer torchvision spells
-    differently: the mask tower's ``mask_head.{i-1}.0`` (a
-    ``Conv2dNormActivation``) is ``mask_head.mask_fcn{i}``."""
-    parts = key.split(".")
-    if parts[:2] == ["roi_heads", "mask_head"] and len(parts) == 5 \
-            and parts[2].isdigit() and parts[3] == "0":
-        return f"roi_heads.mask_head.mask_fcn{int(parts[2]) + 1}.{parts[4]}"
+# torchvision's two spellings of one tensor: newer releases nest the FPN's,
+# the RPN tower's and the mask tower's convolutions in a
+# ``Conv2dNormActivation`` (``.0``); the v2 recipe's layers are always
+# nested, the port's v1 layers never.
+_ALIASES = (
+    (r"(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.0\.(weight|bias)",
+     r"\1.\2"),
+    (r"(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.(weight|bias)",
+     r"\1.0.\2"),
+    (r"rpn\.head\.conv\.0\.0\.(weight|bias)", r"rpn.head.conv.\1"),
+    (r"rpn\.head\.conv\.(weight|bias)", r"rpn.head.conv.0.0.\1"),
+    (r"roi_heads\.mask_head\.(\d)\.0\.(weight|bias)",
+     lambda m: f"roi_heads.mask_head.mask_fcn{int(m[1]) + 1}.{m[2]}"),
+    (r"roi_heads\.mask_head\.mask_fcn(\d)\.(weight|bias)",
+     lambda m: f"roi_heads.mask_head.{int(m[1]) - 1}.0.{m[2]}"),
+)
+
+
+def _torchvision_alias(key: str, own: Dict) -> str:
+    """``key`` if the model ``own`` (its state dict) has it, else the other
+    torchvision spelling of the same tensor where the model has that: a v1
+    model reads a v2 or newer checkpoint's nested convolutions, a v2 model
+    a v1 checkpoint's, as the JAX package's key maps read them."""
+    if key in own:
+        return key
+    for pattern, repl in _ALIASES:
+        alias = re.sub(f"^{pattern}$", repl, key)
+        if alias != key and alias in own:
+            return alias
     return key
 
 
@@ -254,9 +340,14 @@ def load_pretrained(model, path: str, verbose: bool = True):
         payload = torch.load(path, map_location="cpu", weights_only=True)
         state_dict = payload.get("state_dict", payload)
         own = model.state_dict()
+        if verbose:
+            # As the JAX package recognises a v2 checkpoint: by its 2-deep
+            # RPN tower.
+            v2 = "rpn.head.conv.1.0.weight" in state_dict
+            print(f"[pretrained] torchvision {'v2' if v2 else 'v1'} layout")
         with torch.no_grad():
             for k, v in state_dict.items():
-                k = _torchvision_alias(k)
+                k = _torchvision_alias(k, own)
                 if k in own and tuple(own[k].shape) == tuple(v.shape):
                     own[k].copy_(v)
                     copied += 1

@@ -2,14 +2,18 @@
 
 Counterpart of ``podtpu/ops/image_ops.py`` (``hflip``, ``vflip``,
 ``rgb_to_hsv``, ``hsv_to_rgb``, ``photometric_distort``,
-``copy_paste_batch``), batched with one decision per image: each
+``copy_paste_batch``, ``scale_and_place`` with its mask and keypoint forms,
+``scale_jitter``), batched with one decision per image: each
 transform is computed for the whole batch and selected per image with
-``torch.where``, as the JAX package selects inside its vmap.  The random numbers are the explicit tensors of
-:class:`PhotometricDraws` and copy-paste's ``[B, G]`` uniforms;
-:func:`draw_photometric` makes the former from a ``torch.Generator``.
+``torch.where``, as the JAX package selects inside its vmap; the resample
+takes each image's own scale and translation.  The random numbers are the
+explicit tensors of :class:`PhotometricDraws`, copy-paste's ``[B, G]``
+uniforms and the jitter's ``[B]`` scales; :func:`draw_photometric` makes
+the first from a ``torch.Generator``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -206,3 +210,110 @@ def copy_paste_batch(keep_draw: torch.Tensor, images: torch.Tensor,
             all_masks, 1, order[:, :, None, None].expand(
                 -1, -1, *all_masks.shape[2:]))
     return out_images, out_boxes, out_labels, out_valid, out_masks
+
+
+_F32_EPS = float(torch.finfo(torch.float32).eps)
+
+
+def _resample_weights(n_in: int, n_out: int, scale: torch.Tensor,
+                      translation: torch.Tensor) -> torch.Tensor:
+    """``[B, n_in, n_out]`` float32 weights of one axis of
+    ``jax.image.scale_and_translate(method="linear", antialias=False)``,
+    per image's ``[B]`` scale and translation: output pixel ``o`` samples
+    the input at ``(o + 0.5) / s - t / s - 0.5`` with a triangle kernel;
+    each column is divided by its sum (0 where the sum is about 0), and
+    columns whose sample lies outside ``[-0.5, n_in - 0.5]`` are 0."""
+    dev = scale.device
+    inv = (1.0 / scale)[:, None]
+    sample = ((torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5)
+              * inv - translation[:, None] * inv - 0.5)            # [B, out]
+    x = (sample[:, None, :] - torch.arange(
+        n_in, dtype=torch.float32, device=dev)[None, :, None]).abs()
+    w = (1.0 - x).clamp(min=0.0)
+    total = w.sum(1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * _F32_EPS,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
+@contextlib.contextmanager
+def _ieee_float32_matmul():
+    """Float32 products in full precision (no TF32) inside the block."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def _scale_translate(planes: torch.Tensor, scale: torch.Tensor,
+                     ty: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
+    """``[B, C, H, W]`` float32 planes resampled on their own grid by each
+    image's ``scale`` and translation ``(ty, tx)`` in pixels: the two
+    axes' weight matrices applied as float32 products."""
+    h, w = planes.shape[2:]
+    wy = _resample_weights(h, h, scale, ty)                  # [B, H, H']
+    wx = _resample_weights(w, w, scale, tx)                  # [B, W, W']
+    with _ieee_float32_matmul():
+        rows = torch.matmul(wy.transpose(1, 2)[:, None], planes)
+        return torch.matmul(rows, wx[:, None])
+
+
+def scale_and_place(images: torch.Tensor, boxes: torch.Tensor,
+                    scale: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor):
+    """``[B, H, W, C]`` float32 images resampled by each image's ``[B]``
+    scale with translation ``(tx, ty)`` px on the same canvas, and their
+    ``[B, G, 4]`` boxes moved alike."""
+    out = _scale_translate(images.permute(0, 3, 1, 2), scale, ty, tx)
+    s, x0, y0 = scale.view(-1, 1), tx.view(-1, 1), ty.view(-1, 1)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return (out.permute(0, 2, 3, 1).contiguous(),
+            torch.stack([x1 * s + x0, y1 * s + y0, x2 * s + x0, y2 * s + y0],
+                        -1))
+
+
+def scale_and_place_masks(masks: torch.Tensor, scale: torch.Tensor,
+                          tx: torch.Tensor, ty: torch.Tensor, image_h: int,
+                          image_w: int) -> torch.Tensor:
+    """The transform of :func:`scale_and_place` on ``[B, G, Hm, Wm]`` mask
+    planes, the canvas at the mask stride: the translation, in image
+    pixels, is converted to grid cells."""
+    hm, wm = masks.shape[2:]
+    return _scale_translate(masks, scale, ty * hm / image_h,
+                            tx * wm / image_w)
+
+
+def scale_and_place_keypoints(kps: torch.Tensor, scale: torch.Tensor,
+                              tx: torch.Tensor, ty: torch.Tensor,
+                              image_h: int, image_w: int) -> torch.Tensor:
+    """The transform of :func:`scale_and_place` on ``[B, G, K, 3]`` (x, y,
+    v) keypoints; a point that leaves the canvas gets v = 0."""
+    s, x0, y0 = (v.view(-1, 1, 1) for v in (scale, tx, ty))
+    x = kps[..., 0] * s + x0
+    y = kps[..., 1] * s + y0
+    inside = (x >= 0) & (x < image_w) & (y >= 0) & (y < image_h)
+    return torch.stack([x, y, kps[..., 2] * inside.to(kps.dtype)], -1)
+
+
+def scale_jitter(images: torch.Tensor, boxes: torch.Tensor,
+                 scale: torch.Tensor, masks=None, keypoints=None):
+    """Large-scale jitter: each image of ``[B, H, W, C]`` resampled by its
+    ``[B]`` scale on the fixed canvas, anchored at the top-left corner;
+    boxes (clipped to the canvas), ``[B, G, Hm, Wm]`` masks and ``[B, G, K,
+    3]`` keypoints follow.  Returns ``(images, boxes, masks,
+    keypoints)``."""
+    h, w = images.shape[1], images.shape[2]
+    zero = torch.zeros_like(scale)
+    images, boxes = scale_and_place(images, boxes, scale, zero, zero)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    boxes = torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
+                         y2.clamp(0, h)], -1)
+    if masks is not None:
+        masks = scale_and_place_masks(masks, scale, zero, zero, h, w)
+    if keypoints is not None:
+        keypoints = scale_and_place_keypoints(keypoints, scale, zero, zero,
+                                              h, w)
+    return images, boxes, masks, keypoints

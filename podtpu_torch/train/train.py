@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
+                                      fasterrcnn_v2_config,
                                       model_config_from_dict)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
@@ -157,13 +158,8 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
         missing = f"family={fam!r} (item 14: SSD and the mobile trunks)"
     elif fam != "faster_rcnn":
         missing = f"family={fam!r}"
-    elif v2:
-        missing = "the v2 recipe (item 12: v2 recipes)"
     elif net != "resnet50_fpn":
         missing = f"backbone={net!r} (item 14: the mobile trunks)"
-    elif mask and model_cfg.mask_head_norm:
-        missing = "mask_head_norm, the v2 normed mask tower (item 12: v2 " \
-                  "recipes)"
     elif num_devices is not None and num_devices > 1:
         missing = f"num_devices={num_devices} (item 18: data parallelism)"
     if missing is not None:
@@ -223,6 +219,10 @@ def train(project: Project,
     model_cfg = cfg.model
     _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
                    num_devices)
+    if family == "faster_rcnn_v2":
+        # The v2 recipe's heads; the stored family stays 'faster_rcnn' (the
+        # v2 fields rebuild the model from config.json).
+        model_cfg = fasterrcnn_v2_config(model_cfg)
 
     print()
     print("=" * 80)

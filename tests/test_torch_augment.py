@@ -65,18 +65,26 @@ def stack_photometric(per_image):
 
 def jax_augment_draws(rng_aug, b, policy="miso"):
     """A policy's draws for a batch (``presets.py:213`` splits per image;
-    miso splits into flips and distortion at ``:82``; ``_flips`` into h and
-    v at ``:55``)."""
-    hf, vf, photo = [], [], []
+    miso splits into flips and distortion at ``:82``, lsj and multiscale
+    into the scale jitter's uniform and flips at ``:100`` and ``:110``;
+    ``_flips`` into h and v at ``:55``)."""
+    hf, vf, photo, scale = [], [], [], []
+    jitter = presets.SCALE_RANGES.get(policy)
     for r in jax.random.split(rng_aug, b):
         k1, k2 = jax.random.split(r) if policy == "miso" else (r, r)
+        if jitter:
+            ks, k1 = jax.random.split(r)
+            scale.append(float(jax.random.uniform(
+                ks, (), minval=jitter[0], maxval=jitter[1])))
         kh, kv = jax.random.split(k1)
         hf.append(float(jax.random.uniform(kh)))
         vf.append(float(jax.random.uniform(kv)))
         photo.append(jax_photometric_draws(k2))
     return presets.AugmentDraws(hflip=t(np.float32(hf)),
                                 vflip=t(np.float32(vf)),
-                                photometric=stack_photometric(photo))
+                                photometric=stack_photometric(photo),
+                                scale=t(np.float32(scale)) if jitter
+                                else None)
 
 
 def images_and_boxes(seed, b=4, size=32):
@@ -160,7 +168,7 @@ class TestPolicies:
             assert flipped.any() and not flipped.all()
 
     def test_get_policy_and_kwargs(self):
-        for name in ("lsj", "multiscale", "ssd", "ssdlite"):
+        for name in ("ssd", "ssdlite"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 presets.get_policy(name)
         with pytest.raises(ValueError):

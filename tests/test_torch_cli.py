@@ -244,6 +244,8 @@ TRAIN_CASES = {
     "multistep": ["--lr-schedule", "multistep", "--lr-steps", "3, 5",
                   "--epochs", "6", "--lr-gamma", "0.5",
                   "--norm-weight-decay", "0"],
+    "v2": ["--family", "faster_rcnn_v2"],
+    "v2_mask": ["--family", "faster_rcnn_v2", "--with-mask"],
     "keypoints": ["--with-keypoints", "--num-keypoints", "3",
                   "--keypoint-hflip-inds", "1,0,2",
                   "--keypoint-roi-expand", "1.3", "--num-devices", "2",
@@ -332,8 +334,6 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["classify-crops", "-i", "crops", "--model", "m"], "item 15"),
     (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
     (["serve", "--model", "m", "--exported"], "item 17"),
-    (["train-object-detector", "-t", "5", "--with-mask", "--family",
-      "faster_rcnn_v2"], "item 12"),
     (["train-object-detector", "-t", "5", "--family", "retinanet"],
      "item 13"),
     (["train-object-detector", "-t", "5", "--backbone", "mobilenet_v2"],

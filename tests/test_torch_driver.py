@@ -508,10 +508,8 @@ class TestResume:
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(family="retinanet"), "item 13"),
-    (dict(family="faster_rcnn_v2"), "item 12"),
     (dict(family="ssdlite"), "item 14"),
     (dict(backbone="mobilenet_v3_fpn"), "item 14"),
-    (dict(with_mask=True, family="faster_rcnn_v2"), "item 12"),
     (dict(num_devices=2), "item 18"),
 ])
 def test_unported_options_raise(runs, tmp_path, kwargs, item):

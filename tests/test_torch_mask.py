@@ -424,8 +424,7 @@ def test_policies_with_masks(policy):
 
 
 def test_unported_policies_name_their_item():
-    for name, item in (("lsj", "item 12"), ("multiscale", "item 12"),
-                       ("ssd", "item 14"), ("ssdlite", "item 14")):
+    for name, item in (("ssd", "item 14"), ("ssdlite", "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             presets.get_policy(name)
 
