@@ -128,11 +128,30 @@ Phases, one JSON line each:
    checked, ``evaluate_model``, ``infer`` at the median of the best scores
    (boxes kept) and one ``DetectionServer`` batch.
 
+14. one-stage: RetinaNet, RetinaNet v2 and FCOS R50-FPN (``ONE_STAGE``;
+   ``retinanet_config``, ``retinanet_v2_config``, ``fcos_config``).
+   ``retinanet_reference``, ``retinanet_v2_reference``,
+   ``fcos_reference``: phase 4 for each, scores lifted (``lift_scores``:
+   random heads score every class at the prior 0.01, under the
+   thresholds); ``*_train_reference``: phase 6 for each, two seeds, no
+   kernel launched on the card.  ``retinanet_serve`` and ``fcos_serve``:
+   phase 5 with lifted scores, K1 once a batch on 4 segments of 5,000 or
+   3,960 boxes, each at least 90 % valid, no K2, with their breakdowns
+   (backbone + FPN, head, scores with the per-level top-k, decode and
+   pool, NMS, output).  ``retinanet_train``, ``retinanet_v2_train``,
+   ``fcos_train``: phase 7, 3 + 10 steps, no kernel.  ``fcos_driver`` and
+   ``retinanet_v2_driver``: ``train(family=...)`` for 2 epochs on the v2
+   driver's 24 images from a start whose class prior clears the
+   thresholds, the stored config checked, ``evaluate_model`` at batch 4,
+   ``infer`` at the median best score (boxes kept), 4 server requests; K1
+   once per eval and infer batch, each segment's valid boxes printed.
+
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
 ``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
 the CLI's model, captured after the timed runs; the same for the v2
-serving batch and v2 training step): as
+serving batch and v2 training step, the one-stage serving batches and
+the one-stage drivers' ``evaluate_model`` and ``infer`` calls): as
 the path calls it and in score order, against the plain version, twice,
 with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
 batches, on the mask and keypoint calls at 14 and on the v2 step's call
@@ -299,6 +318,7 @@ def nms_record(torch, nms, name, boxes, valid, t, order=None, timed=False):
            "order": order is not None, "kept": int(got.sum()),
            "kept_per_segment": got.sum(-1).tolist(),
            "valid": int(valid.sum()),
+           "valid_per_segment": valid.sum(-1).tolist(),
            "mismatches": int((got != want).sum()),
            "equal_bits_twice": bool(torch.equal(got, again))}
     if timed:
@@ -388,16 +408,20 @@ def check_nms_main_path(torch, nms, captured):
     postprocess calls of serving, ``evaluate_model`` and ``infer``, one
     training step's call): as the path calls it, and in score order through
     the sorted-form wrapper, against the plain version, twice, with
-    times."""
+    times.  Returns the records of the calls as the paths made them, by
+    path and call."""
+    out = {}
     for path, calls in captured:
         for k, (boxes, valid, t, order) in enumerate(calls):
             name = f"{path}_call{k}_s{boxes.shape[0]}_n{boxes.shape[1]}"
-            nms_record(torch, nms, name, boxes, valid, t, order, timed=True)
+            out[(path, k)] = nms_record(torch, nms, name, boxes, valid, t,
+                                        order, timed=True)[1]
             if order is not None:
                 sb = torch.gather(boxes, 1,
                                   order[..., None].expand(-1, -1, 4))
                 nms_record(torch, nms, name + "_sorted", sb.contiguous(),
                            torch.gather(valid, 1, order), t, timed=True)
+    return out
 
 
 def capture_roi_align(run, limit=None):
@@ -847,17 +871,60 @@ def check_roi_align_bwd(torch, roi_align, dev):
 # and the v2 recipe's models (``fasterrcnn_v2_config``).  A keypoint model
 # flips its left and right joints as ``train()`` makes it do for the COCO
 # skeleton (a chiral skeleton: no vertical flip).
-MODELS = ("faster", "mask", "keypoint", "faster_v2", "mask_v2")
+MODELS = ("faster", "mask", "keypoint", "faster_v2", "mask_v2",
+          "retinanet", "retinanet_v2", "fcos")
+# The one-stage families (phase 14): no RoI stage, one class-offset NMS
+# segment an image.
+ONE_STAGE = ("retinanet", "retinanet_v2", "fcos")
 # The augmentation policy each model trains with: the v2 recipes' scale
 # jitters, the reference pipeline's miso for the others.
 MODEL_POLICY = {"faster_v2": "lsj", "mask_v2": "multiscale"}
 
 
+def model_config(model, **kw):
+    """The ``ModelConfig`` of ``model`` (one of ``MODELS``) with the fields
+    ``kw``: a one-stage family's preset over ``ModelConfig(**kw)``."""
+    from podtpu_torch.core import config
+
+    cfg = config.ModelConfig(**kw, **model_kwargs(model))
+    preset = {"retinanet": config.retinanet_config,
+              "retinanet_v2": config.retinanet_v2_config,
+              "fcos": config.fcos_config}.get(model)
+    return preset(cfg) if preset else cfg
+
+
+def lift_scores(torch, net, prior=None):
+    """A seeded one-stage model whose scores clear its thresholds: random
+    weights score every class near the prior 0.01, under RetinaNet's 0.05
+    and FCOS's 0.2, and K1 would see segments of invalid boxes only.  The
+    class logits get bias 0 and, behind a tower without GroupNorm (whose
+    outputs are about 100 times smaller than a normed tower's), their
+    kernel times 100: scores spread around 0.5 either way.  With
+    ``prior`` the bias is ``logit(prior)`` instead, the kernel as it was: a
+    start that training does not blow up (at 0.5 on every anchor the
+    focal loss of the background alone is over 100 a foreground anchor).
+    FCOS's distances get bias 1 (boxes about two strides wide)."""
+    head = net.head
+    normed = any(isinstance(m, torch.nn.GroupNorm)
+                 for m in head.classification_head.modules())
+    with torch.no_grad():
+        head.classification_head.cls_logits.bias.fill_(
+            0.0 if prior is None else float(np.log(prior / (1 - prior))))
+        if not normed and prior is None:
+            head.classification_head.cls_logits.weight.mul_(100.0)
+        if hasattr(head.regression_head, "bbox_ctrness"):
+            head.regression_head.bbox_reg.bias.fill_(1.0)
+    return net
+
+
 def model_kwargs(model):
-    """``ModelConfig`` arguments of ``model``, one of ``MODELS``."""
+    """``ModelConfig`` arguments of ``model``, one of ``MODELS`` (none for
+    a one-stage family: see ``model_config``)."""
     from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, ModelConfig,
                                           fasterrcnn_v2_config)
 
+    if model in ONE_STAGE:
+        return {}
     head = {"mask": dict(with_mask=True),
             "keypoint": dict(with_keypoints=True,
                              keypoint_hflip_inds=COCO_17_HFLIP_INDS)}.get(
@@ -876,9 +943,11 @@ def head_of(model):
 
 
 def model_title(model):
-    """``model``'s name in the records, e.g. mask_rcnn_resnet50_fpn_v2."""
+    """``model``'s name in the records, e.g. mask_rcnn_resnet50_fpn_v2,
+    retinanet_resnet50_fpn_v2."""
     base, _, v2 = model.partition("_")
-    return f"{base}_rcnn_resnet50_fpn" + ("_v2" if v2 else "")
+    kind = "" if model in ONE_STAGE else "_rcnn"
+    return f"{base}{kind}_resnet50_fpn" + ("_v2" if v2 else "")
 
 
 def phase_name(model, name):
@@ -905,20 +974,22 @@ def check_reference(torch, dev, model="faster"):
     keypoints where a heatmap's peak clears its runner-up by ten times
     that (at least half of them): x and y within 1e-2 px, scores within
     1e-3 relative.  Seeds whose scores nearly tie are passed over: a near
-    tie would make slot order fragile."""
-    from podtpu_torch.core.config import ModelConfig
+    tie would make slot order fragile.  A one-stage model's scores are
+    lifted (``lift_scores``)."""
     from podtpu_torch.models.detector import init_parameters, make_detector
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ModelConfig(image_size=(128, 128), rpn_pre_nms_topk_test=128,
-                      rpn_post_nms_topk_test=64, detections_per_image=16,
-                      compute_dtype="float32", num_classes=4,
-                      **model_kwargs(model))
+    cfg = dataclasses.replace(model_config(
+        model, image_size=(128, 128), rpn_pre_nms_topk_test=128,
+        rpn_post_nms_topk_test=64, compute_dtype="float32", num_classes=4),
+        detections_per_image=16)
     try:
         for seed in range(SEED, SEED + 5):
             cpu = make_detector(cfg)
             init_parameters(cpu, torch.Generator().manual_seed(seed))
+            if model in ONE_STAGE:
+                lift_scores(torch, cpu)
             cpu = cpu.to(memory_format=torch.channels_last).eval()
             gpu = copy.deepcopy(cpu).to(dev)
             img = np.random.default_rng(seed).integers(
@@ -1022,6 +1093,43 @@ def stage_breakdown(torch, model, images):
         return {name: time_ms(fn, reps=10) for name, fn in stages.items()}
 
 
+def one_stage_breakdown(torch, model, images):
+    """Milliseconds of each stage of a one-stage model's eval forward on
+    the card (CUDA events, median), each fed the previous stage's outputs:
+    backbone and FPN, the head, the scores with the per-level top-k,
+    decode and the pool's re-top, the class-offset NMS (K1), the output's
+    top-k; and the whole forward."""
+    from podtpu_torch.models import retinanet as one_stage
+
+    cfg = model.cfg
+    x = torch.from_numpy(np.stack(images)).cuda()
+    with torch.inference_mode():
+        pyramid = model.features(x)
+        head_out = model.head(pyramid)
+
+        def pool():
+            return one_stage.candidate_pool(
+                *model.level_scores(*head_out), model.anchors(), cfg,
+                model.decode)
+
+        boxes, scores, labels, valid = pool()
+        keep = one_stage.batched_nms_keep(boxes, scores, labels,
+                                          cfg.nms_thresh, valid,
+                                          presorted=True)
+        stages = {
+            "backbone_fpn": lambda: model.features(x),
+            "head": lambda: model.head(pyramid),
+            "topk_decode": pool,
+            "nms": lambda: one_stage.batched_nms_keep(
+                boxes, scores, labels, cfg.nms_thresh, valid,
+                presorted=True),
+            "output": lambda: one_stage.select_detections(
+                boxes, scores, labels, keep, cfg),
+            "forward": lambda: model(x),
+        }
+        return {name: time_ms(fn, reps=10) for name, fn in stages.items()}
+
+
 def device_profile(torch, run, reps=3, unit="forward"):
     """Device busy share over ``reps`` calls of ``run`` (the union of the
     device activities that ``torch.profiler`` records, over the host wall
@@ -1076,10 +1184,13 @@ def device_profile(torch, run, reps=3, unit="forward"):
 
 def serve_slice(torch, card, dev, cfg, captured, model="faster"):
     """``cfg``'s model (``model``, one of ``MODELS``: "faster", or
-    "faster_v2" for the ``v2_serve`` phase) with seeded random weights,
-    saved as a model directory and served by ``DetectionServer(batch_size=
-    4)`` behind HTTP to 8 client threads; each batch must launch K1 twice
-    and K2 once.  Then its breakdown line.  Returns the launches."""
+    "faster_v2" for the ``v2_serve`` phase, or a one-stage family) with
+    seeded random weights (a one-stage model's scores lifted,
+    ``lift_scores``), saved as a model directory and served by
+    ``DetectionServer(batch_size=4)`` behind HTTP to 8 client threads;
+    each batch must launch K1 twice and K2 once (a one-stage model: K1
+    once, its one segment an image at least 90 % valid boxes, and no K2).
+    Then its breakdown line.  Returns the launches."""
     from podtpu_torch.infer.server import DetectionServer, make_handler
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build, nms
@@ -1094,6 +1205,8 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
     with tempfile.TemporaryDirectory() as model_dir:
         net = make_detector(cfg)
         init_parameters(net, torch.Generator().manual_seed(SEED))
+        if model in ONE_STAGE:
+            lift_scores(torch, net)
         save_model(model_dir, net, cfg, labels)
         save_labels(model_dir, labels)
         del net
@@ -1146,7 +1259,8 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
             launches = dict(_build.launches)
             batches = server.batches_served - served0
             lat = sorted(server.batch_seconds)
-            stages = stage_breakdown(torch, server.model, images[:4])
+            stages = (one_stage_breakdown if model in ONE_STAGE
+                      else stage_breakdown)(torch, server.model, images[:4])
             x = torch.from_numpy(np.stack(images[:4])).to(dev)
 
             def forward():
@@ -1154,8 +1268,8 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
                     server.model(x)
 
             prof = device_profile(torch, forward)
-            captured.append((phase_name(model, "serve"),
-                             capture_nms(nms, forward)))
+            calls = capture_nms(nms, forward)
+            captured.append((phase_name(model, "serve"), calls))
         finally:
             httpd.shutdown()
             http_thread.join(timeout=30)
@@ -1184,15 +1298,28 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
            "launches": launches,
            "launches_per_batch": {k: v / batches
                                   for k, v in launches.items()},
+           "k1_segments": [{"shape": list(c[0].shape[:2]),
+                            "valid_per_segment": c[1].sum(-1).tolist()}
+                           for c in calls],
            "card": card}
     emit(rec)
     emit({"phase": phase_name(model, "breakdown"), "batch_size": 4,
           "stages_ms": stages, "profile": prof, "card": card})
-    for name, per_batch in (("nms", 2), ("roi_align_fwd", 1)):
-        if launches.get(name, 0) != per_batch * batches:
+    per_batch = {"nms": 2, "roi_align_fwd": 1}
+    if model in ONE_STAGE:
+        per_batch = {"nms": 1, "roi_align_fwd": 0}
+        boxes, valid = calls[0][:2]
+        share = float(valid.sum(-1).min()) / valid.shape[1]
+        if len(calls) != 1 or boxes.shape[0] != 4 or share < 0.9:
+            raise AssertionError(
+                f"{model} serve: {len(calls)} K1 calls a batch of shape "
+                f"{tuple(boxes.shape)}, least valid share {share}; expected "
+                "one call of 4 segments, each at least 90 % valid")
+    for name, per in per_batch.items():
+        if launches.get(name, 0) != per * batches:
             raise AssertionError(f"kernel {name} launched {launches.get(name)}"
                                  f" times in {batches} batches, expected "
-                                 f"{per_batch} a batch")
+                                 f"{per} a batch")
     return launches
 
 
@@ -1301,8 +1428,10 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
     and 1.5e-1 of its largest entry, updated parameters within 2.5e-5.
     The two card runs share their forward, so K3 against its plain
     version is held to LIMITS_K3_VS_PLAIN.  The mask and keypoint models
-    are held to the same limits."""
-    from podtpu_torch.core.config import Config, DataConfig, ModelConfig
+    are held to the same limits.  A one-stage model (``ONE_STAGE``, its
+    weights as initialised) launches no kernel in a step: its card run
+    must launch none, and it has no plain-K3 run."""
+    from podtpu_torch.core.config import Config, DataConfig
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
     from podtpu_torch.train.optim import make_optimizer
@@ -1310,10 +1439,12 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    mcfg = ModelConfig(image_size=(128, 128), rpn_pre_nms_topk_train=128,
-                       rpn_post_nms_topk_train=128, box_batch_per_image=32,
-                       max_gt_boxes=8, compute_dtype="float32", num_classes=4,
-                       **model_kwargs(model))
+    mcfg = model_config(model, image_size=(128, 128),
+                        rpn_pre_nms_topk_train=128,
+                        rpn_post_nms_topk_train=128, box_batch_per_image=32,
+                        max_gt_boxes=8, compute_dtype="float32",
+                        num_classes=4)
+    one_stage = model in ONE_STAGE
     cfg = Config(model=mcfg, data=DataConfig(
         aug_policy=MODEL_POLICY.get(model, "miso")))
 
@@ -1331,7 +1462,8 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
         return ({k: float(v) for k, v in metrics.items()},
                 {n: (p.detach().cpu(), p.grad.cpu())
                  for n, p in model.named_parameters() if p.grad is not None},
-                signs.signs, _build.launches["roi_align_bwd"])
+                signs.signs, sum(_build.launches.values()) if one_stage
+                else _build.launches["roi_align_bwd"])
 
     def compare(ref, got):
         (lc, pc, sc, _), (lg, pg, sg, k3) = ref, got
@@ -1376,8 +1508,15 @@ def check_train_reference(torch, dev, seeds=range(SEED, SEED + 6),
                "losses_cpu": cpu[0], "trained_tensors": len(cpu[1]),
                "relu_inputs": sum(x.numel() for x in cpu[2])}
         k3 = run(seed, batch, draws, dev, False)
-        plain = run(seed, batch, draws, dev, True)
         rec["k3"] = compare(cpu, k3)
+        if one_stage:
+            # The card's step: the key keeps the records' shape; a
+            # one-stage step launches no kernel (counted in k3_launches).
+            if not (within(rec["k3"], vs_cpu) and k3[3] == 0):
+                bad.append(seed)
+            emit(rec)
+            continue
+        plain = run(seed, batch, draws, dev, True)
         rec["plain_k3"] = compare(cpu, plain)
         rec["k3_vs_plain_k3"] = compare(plain, k3)
         if not (within(rec["k3"], vs_cpu) and within(rec["plain_k3"], vs_cpu)
@@ -1429,7 +1568,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     permutation), each gt of the same batches holding 17 keypoints.
     ``warmup`` and ``timed`` steps: every loss finite, and per step K1
     once, K2 and K3 once (twice with a mask or keypoint head: the box head
-    at 7, the other at 14).  The box model's trained weights go through a
+    at 7, the other at 14; no kernel at all for a one-stage model).  The box model's trained weights go through a
     model directory and serve one batch; the mask model then takes
     ``extra_steps`` under ``DataConfig.copy_paste``, the keypoint model
     ``extra_steps`` with ``keypoint_roi_expand`` 1.3, launches held as
@@ -1437,7 +1576,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     too) and a profiler window.  Returns the launches, the images/s and
     ``replay``, which runs one more step on the first batch (for the
     keypoint model also ``replay_expand``, the same at 1.3)."""
-    from podtpu_torch.core.config import Config, DataConfig, ModelConfig
+    from podtpu_torch.core.config import Config, DataConfig
     from podtpu_torch.infer.inference import load_inference_model
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build
@@ -1447,8 +1586,8 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
 
     head = head_of(model)
     kps = head == "keypoint"
-    cfg = Config(model=ModelConfig(**({} if kps else dict(num_classes=4)),
-                                   **model_kwargs(model)),
+    cfg = Config(model=model_config(model, **({} if kps
+                                              else dict(num_classes=4))),
                  data=DataConfig(aug_policy=MODEL_POLICY.get(model, "miso")))
     mcfg = cfg.model
     prefix = phase_name(model, "")
@@ -1479,6 +1618,8 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     warm_s = time.perf_counter() - t0
     per_step = {"nms": 1, "roi_align_fwd": 1 + (head is not None),
                 "roi_align_bwd": 1 + (head is not None)}
+    if model in ONE_STAGE:   # no RoI stage, no proposals: no kernel
+        per_step = dict.fromkeys(per_step, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -2820,23 +2961,14 @@ def head_driver_phase(torch, card, dev, model="mask", config=None,
             f"{model}_infer": infer_launches}
 
 
-def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
-                    n_images=24, n_infer=8):
-    """``train(family="faster_rcnn_v2")`` under ``lsj`` at the ``Config()``
-    defaults on the driver phase's 24 in-memory images for 2 epochs; the
-    model directory keeps the family ``faster_rcnn`` with the v2 fields.
-    Then ``evaluate_model`` on its 4 test images, ``infer`` on ``n_infer``
-    unlabelled images at the median of their best scores, which must keep
-    boxes, and one ``DetectionServer`` batch of the four images with the
-    best scores.  Per-epoch seconds and images/s; K3 once per step, K1 and
-    K2 at least once per step and eval batch.  Returns the launches by
-    path."""
-    from podtpu_torch.core.config import Config
-    from podtpu_torch.data import Project, imageio
+def driver_inputs(size, n_images, n_infer):
+    """The inputs of the v2 and one-stage driver phases: the driver
+    phase's seeded in-memory images (path -> array) with ``n_infer``
+    unlabelled ones, the labelled project, its 20 % test split (as a
+    project and as indices) and the unlabelled project with its images'
+    metadata."""
+    from podtpu_torch.data import Project
     from podtpu_torch.data.dataset import train_test_split
-    from podtpu_torch.infer import inference
-    from podtpu_torch.infer.server import DetectionServer
-    from podtpu_torch.train import train as driver
 
     images, metas = in_memory_images(np.random.default_rng(SEED + 8),
                                      n_images, size)
@@ -2851,6 +2983,63 @@ def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
     _, test_idx = train_test_split(len(metas), 0.2, 1)
     for i in test_idx:
         test_project.add_image(metas[int(i)])
+    return images, project, test_project, test_idx, infer_project, \
+        infer_metas
+
+
+def infer_and_serve(torch, driver, dev, model_dir, images, infer_project,
+                    infer_metas):
+    """``infer`` of the model in ``model_dir`` over ``infer_project`` at
+    batch 4 and the median of its images' best scores (read from one
+    forward of them all), its K1 calls captured, then 4
+    ``DetectionServer`` requests of the images with the best scores at
+    that threshold.  Returns the stored config, the threshold, ``infer``'s
+    result, launches, seconds and K1 calls, and the server's results."""
+    from podtpu_torch.infer import inference
+    from podtpu_torch.infer.server import DetectionServer
+    from podtpu_torch.ops import nms
+
+    with contextlib.redirect_stdout(sys.stderr):
+        forward, _, stored, _ = inference.load_inference_model(model_dir,
+                                                               dev)
+        det = forward(np.stack([images[m.full_path] for m in infer_metas]))
+        best = torch.where(det.valid, det.scores, torch.zeros_like(
+            det.scores)).amax(1).cpu()
+        order = [infer_metas[int(i)] for i in best.argsort(descending=True)]
+        best = best[best > 0]
+        threshold = float(best.median()) - 1e-6 if len(best) else 0.0
+        del forward, det
+    (result, calls), launches, _, seconds = driven(
+        torch, driver, capture_nms_out, nms, inference.infer, infer_project,
+        model_dir, threshold=threshold, batch_size=4, device=dev)
+    server = DetectionServer(model_dir, batch_size=4, device=dev)
+    try:
+        served = [server.detect_array(images[m.full_path], threshold)
+                  for m in order[:4]]
+    finally:
+        server.close()
+    return dict(stored=stored, threshold=threshold, result=result,
+                launches=launches, seconds=seconds, calls=calls,
+                served=served)
+
+
+def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
+                    n_images=24, n_infer=8):
+    """``train(family="faster_rcnn_v2")`` under ``lsj`` at the ``Config()``
+    defaults on the driver phase's 24 in-memory images for 2 epochs; the
+    model directory keeps the family ``faster_rcnn`` with the v2 fields.
+    Then ``evaluate_model`` on its 4 test images, ``infer`` on ``n_infer``
+    unlabelled images at the median of their best scores, which must keep
+    boxes, and one ``DetectionServer`` batch of the four images with the
+    best scores.  Per-epoch seconds and images/s; K3 once per step, K1 and
+    K2 at least once per step and eval batch.  Returns the launches by
+    path."""
+    from podtpu_torch.core.config import Config
+    from podtpu_torch.data import imageio
+    from podtpu_torch.train import train as driver
+
+    images, project, test_project, test_idx, infer_project, infer_metas = \
+        driver_inputs(size, n_images, n_infer)
     config = config or Config()
     config = dataclasses.replace(config, data=dataclasses.replace(
         config.data, aug_policy="lsj"))
@@ -2867,34 +3056,17 @@ def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
         stats, evaluated, _, eval_s = driven(
             torch, driver, driver.evaluate_model, test_project, model_dir,
             batch_size=2, device=dev)
-        with contextlib.redirect_stdout(sys.stderr):
-            forward, _, stored, _ = inference.load_inference_model(
-                model_dir, dev)
-            det = forward(np.stack([images[m.full_path]
-                                    for m in infer_metas]))
-            best = torch.where(det.valid, det.scores, torch.zeros_like(
-                det.scores)).amax(1).cpu()
-            order = [infer_metas[int(i)] for i in best.argsort(
-                descending=True)]
-            best = best[best > 0]
-            threshold = float(best.median()) - 1e-6 if len(best) else 0.0
-            del forward, det
-        result, infer_launches, _, infer_s = driven(
-            torch, driver, inference.infer, infer_project, model_dir,
-            threshold=threshold, batch_size=4, device=dev)
-        server = DetectionServer(model_dir, batch_size=4, device=dev)
-        try:
-            served = [server.detect_array(images[m.full_path], threshold)
-                      for m in order[:4]]
-        finally:
-            server.close()
+        inf = infer_and_serve(torch, driver, dev, model_dir, images,
+                              infer_project, infer_metas)
     finally:
         imageio.read_rgb = read_rgb
         shutil.rmtree(tmp, ignore_errors=True)
     steps = sum(e["steps"] for e in rec["epochs"])
     eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
-    kept = sum(len(b) for b in kept_boxes(result, infer_metas))
-    served_dets = sum(len(r["detections"]) for r in served)
+    kept = sum(len(b) for b in kept_boxes(inf["result"], infer_metas))
+    served_dets = sum(len(r["detections"]) for r in inf["served"])
+    stored, threshold = inf["stored"], inf["threshold"]
+    infer_launches, infer_s = inf["launches"], inf["seconds"]
     v2_fields = {k: getattr(stored, k) for k in (
         "family", "rpn_conv_depth", "box_head_type", "fpn_norm",
         "mask_head_norm")}
@@ -2929,6 +3101,123 @@ def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
                           -(-len(test_idx) // 2))
     return {"v2_driver": launches, "v2_evaluate_model": evaluated,
             "v2_infer": infer_launches}
+
+
+def capture_nms_out(nms, fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), the inputs of every K1 call it made)``; the
+    calls still launch and count."""
+    out = []
+    calls = capture_nms(nms, lambda: out.append(fn(*args, **kwargs)))
+    return out[0], calls
+
+
+def one_stage_driver_phase(torch, card, dev, model, config=None,
+                           size=(1024, 1024), n_images=24, n_infer=8):
+    """``train(family=model)`` (a one-stage family) at the ``Config()``
+    defaults on the driver phase's 24 in-memory images for 2 epochs, from
+    a model directory of seeded weights whose class prior is 0.1 (0.2 for
+    FCOS, whose score is ``sqrt(class * centre-ness)``), over the score
+    thresholds (``lift_scores``), passed as ``pretrained``: from the 0.01
+    prior, 20 steps leave every score under the thresholds and the K1
+    segments hold no valid box.  Then ``evaluate_model`` on its 4 test images, ``infer`` on
+    ``n_infer`` unlabelled images at the median of their best scores,
+    which must keep boxes, and 4 ``DetectionServer`` requests.  The model
+    directory keeps the family's fields; every loss is finite; training
+    launches K1 once per eval batch of its epochs and no other kernel,
+    ``evaluate_model`` and ``infer`` K1 once a batch, each segment's valid
+    boxes counted.  Returns the launches by path and the K1 inputs of
+    ``evaluate_model`` and ``infer``, as the counted runs made them."""
+    from podtpu_torch.core.config import Config
+    from podtpu_torch.data import imageio
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train import train as driver
+    from podtpu_torch.train.checkpoints import save_labels, save_model
+
+    config = config or Config()
+    images, project, test_project, test_idx, infer_project, infer_metas = \
+        driver_inputs(size, n_images, n_infer)
+    tmp = tempfile.mkdtemp(prefix=f"podtpu_{model}_")
+    start_cfg = model_config(model, **dict(
+        dataclasses.asdict(config.model),
+        num_classes=len(DRIVER_LABELS) + 1))
+    start = make_detector(start_cfg)
+    init_parameters(start, torch.Generator().manual_seed(SEED))
+    lift_scores(torch, start, prior=0.2 if model == "fcos" else 0.1)
+    save_model(os.path.join(tmp, "start"), start, start_cfg, DRIVER_LABELS)
+    save_labels(os.path.join(tmp, "start"), DRIVER_LABELS)
+    del start
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, launches, rec, seconds = driven(
+            torch, driver, driver.train, project, output_dir=tmp, name=model,
+            batch_size=2, seed=0, config=config, device=dev, max_epochs=2,
+            family=model, pretrained=os.path.join(tmp, "start"))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (stats, eval_calls), evaluated, _, eval_s = driven(
+            torch, driver, capture_nms_out, nms, driver.evaluate_model,
+            test_project, model_dir, batch_size=4, device=dev)
+        inf = infer_and_serve(torch, driver, dev, model_dir, images,
+                              infer_project, infer_metas)
+    finally:
+        imageio.read_rgb = read_rgb
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sum(e["steps"] for e in rec["epochs"])
+    eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
+    kept = sum(len(b) for b in kept_boxes(inf["result"], infer_metas))
+    served_dets = sum(len(r["detections"]) for r in inf["served"])
+    threshold, infer_calls = inf["threshold"], inf["calls"]
+    infer_launches, infer_s = inf["launches"], inf["seconds"]
+    fields = {k: getattr(inf["stored"], k) for k in (
+        "family", "retinanet_head_norm", "retinanet_box_loss",
+        "retinanet_p6_on_c5", "score_thresh", "nms_thresh",
+        "detections_per_image", "strides")}
+    want_fields = {k: getattr(start_cfg, k) for k in fields}
+    segments = {path: [c[1].sum(-1).tolist() for c in calls]
+                for path, calls in (("evaluate_model", eval_calls),
+                                    ("infer", infer_calls))}
+    emit({"phase": f"{model}_driver", "model": model_title(model),
+          "image_size": list(size), "images": n_images,
+          "aug_policy": config.data.aug_policy, "stored_config": fields,
+          "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
+          "train_call_s": seconds,
+          "epoch_losses": [e["loss"] for e in rec["epochs"]],
+          "evaluate_model_s": eval_s, "evaluate_model_stats": stats,
+          "best_threshold": threshold, "infer_s": infer_s,
+          "infer_kept_boxes": kept, "served_detections": served_dets,
+          "k1_valid_per_segment": segments,
+          "launches": {"train": launches, "evaluate_model": evaluated,
+                       "infer": infer_launches},
+          "peak_memory_gib": peak, "card": card})
+    bad = []
+    if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
+        bad.append("a train loss is not finite")
+    if len(stats) != 12 or not all(-1 <= v <= 1 for v in stats):
+        bad.append(f"stats {stats}")
+    if fields != want_fields:
+        bad.append(f"stored config {fields}, expected {want_fields}")
+    if not kept or not served_dets:
+        bad.append(f"infer kept {kept} boxes, the server returned "
+                   f"{served_dets} at the median best score")
+    want = {"train": (launches, eval_batches),
+            "evaluate_model": (evaluated, -(-len(test_idx) // 4)),
+            "infer": (infer_launches, -(-n_infer // 4))}
+    for path, (got, batches) in want.items():
+        if got != {"nms": batches, "roi_align_fwd": 0, "roi_align_bwd": 0}:
+            bad.append(f"{path}: launches {got}, expected K1 {batches} "
+                       "and no other kernel")
+    if len(eval_calls) != want["evaluate_model"][1] \
+            or len(infer_calls) != want["infer"][1]:
+        bad.append("captured K1 calls differ from the launches")
+    if bad:
+        raise AssertionError(f"{model} driver: {bad}")
+    return ({f"{model}_driver": launches,
+             f"{model}_evaluate_model": evaluated,
+             f"{model}_infer": infer_launches},
+            [(f"{model}_evaluate_model", eval_calls),
+             (f"{model}_infer", infer_calls)])
 
 
 def main() -> int:
@@ -3009,9 +3298,25 @@ def main() -> int:
     capture_step(mask_v2_train.pop("replay"), ModelConfig().mask_pool_size,
                  head_captured, "mask_v2_train")
     v2_driver = v2_driver_phase(torch, card, "cuda")
+    # Phase 14: the one-stage families.
+    for model in ONE_STAGE:
+        check_train_reference(torch, "cuda", model=model,
+                              seeds=range(SEED, SEED + 2))
+    one_stage = {}
+    for model in ("retinanet", "fcos"):
+        one_stage[f"{model}_serve"] = serve_slice(
+            torch, card, "cuda", model_config(model, num_classes=4),
+            captured, model=model)
+    for model in ONE_STAGE:
+        one_stage[f"{model}_train"] = train_slice(
+            torch, card, "cuda", model=model, timed=10)["launches"]
+    for model in ("fcos", "retinanet_v2"):
+        paths, calls = one_stage_driver_phase(torch, card, "cuda", model)
+        one_stage.update(paths)
+        captured += calls
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)]
-    check_nms_main_path(torch, nms, captured)
+    k1 = check_nms_main_path(torch, nms, captured)
     check_roi_align_main_path(torch, roi_align, [
         ("evaluate_model", eval_roi), ("infer", infer_roi),
         ("cli_evaluate_model", cli_roi)])
@@ -3046,7 +3351,8 @@ def main() -> int:
                    "v2_serve": serve_v2.get(name, 0),
                    "v2_train": v2_train["launches"].get(name, 0),
                    "mask_v2_train": mask_v2_train["launches"].get(name, 0),
-                   **{k: v[name] for k, v in v2_driver.items()}}
+                   **{k: v[name] for k, v in v2_driver.items()},
+                   **{k: v.get(name, 0) for k, v in one_stage.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 
@@ -3064,7 +3370,17 @@ def main() -> int:
              **launches("nms"), max_abs_err=nms_rec["max_abs_err"],
              ms=nms_rec["ms"], plain_ms=nms_rec["plain_ms"],
              bound_ms=nms_rec["bound_ms"], bound_by=nms_rec["bound_by"],
-             library_ms=None, by_output_size=None),
+             library_ms=None, by_output_size=None,
+             # The one-stage paths' single class-offset segment an image,
+             # each call as the path made it.
+             one_stage={f"{path}_call{k}": {
+                 "shape": r["shape"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "valid_per_segment": r["valid_per_segment"],
+                 "kept_per_segment": r["kept_per_segment"]}
+                 for (path, k), r in k1.items()
+                 if path.startswith(("retinanet", "fcos"))}),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",

@@ -181,8 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
                                "retinanet_v2", "fcos", "ssd", "ssdlite"],
           default="faster_rcnn",
           help="Detector family: faster_rcnn and faster_rcnn_v2 (the v2 "
-               "recipe's heads) train; the others wait for ROADMAP.md items "
-               "13 and 14")
+               "recipe's heads), retinanet, retinanet_v2 and fcos (the "
+               "one-stage families) train; ssd and ssdlite wait for "
+               "ROADMAP.md item 14")
     c.opt("--test-tasks",
           help="Comma-separated CVAT task ids held out for evaluation "
                "(default keeps the seeded 80/20 split)")

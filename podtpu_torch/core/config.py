@@ -4,7 +4,8 @@ Field-for-field copies of ``podtpu.core.config``'s ``ModelConfig``,
 ``TrainConfig``, ``DataConfig``, ``CvatConfig`` and ``Config``, so that a
 configuration written by either package loads in the other.  The port
 builds the ``faster_rcnn`` family on ``resnet50_fpn``, v1 and the v2
-recipe (:func:`fasterrcnn_v2_config`), so far
+recipe (:func:`fasterrcnn_v2_config`), and the one-stage ``retinanet``
+(v1 and :func:`retinanet_v2_config`) and ``fcos`` families, so far
 (``models.detector.make_detector`` refuses the rest); the other fields are
 carried so that saved configurations round-trip unchanged.
 """
@@ -74,7 +75,11 @@ class ModelConfig:
     nms_thresh: float = 0.5
     detections_per_image: int = 300
 
-    # One-stage families (not ported yet; carried for config round trips)
+    # One-stage families (``retinanet``, ``fcos``): IoU bands, focal loss,
+    # the per-level top-k and the merged candidate pool of the single
+    # class-offset NMS; the v2 recipe's GroupNorm subnets, GIoU regression
+    # and P6 from C5; FCOS's centre-sampling radius.  SSD's fields are
+    # carried for round trips.
     retinanet_fg_iou: float = 0.5
     retinanet_bg_iou: float = 0.4
     focal_alpha: float = 0.25
@@ -151,6 +156,42 @@ def fasterrcnn_v2_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
                   mask_head_norm=True)
     fields.update(kw)
     return dataclasses.replace(cfg or ModelConfig(), **fields)
+
+
+def retinanet_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` (``ModelConfig()`` when None) as torchvision's
+    ``retinanet_resnet50_fpn``: P3..P7 (strides 8..128), 3 octave scales x
+    3 ratios = 9 anchors a location; ``kw`` overrides any field."""
+    octave = (1.0, 2.0 ** (1.0 / 3.0), 2.0 ** (2.0 / 3.0))
+    return dataclasses.replace(
+        cfg or ModelConfig(), family="retinanet",
+        strides=(8, 16, 32, 64, 128),
+        anchor_sizes=tuple(
+            tuple(s * o for o in octave) for s in (32, 64, 128, 256, 512)),
+        **kw)
+
+
+def retinanet_v2_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` with torchvision's ``retinanet_resnet50_fpn_v2`` recipe:
+    GroupNorm(32) subnets, GIoU box regression and P6 built from C5.  A
+    ``cfg`` that is already ``retinanet`` keeps its anchors and strides;
+    any other first becomes :func:`retinanet_config`."""
+    base = cfg if (cfg is not None and cfg.family == "retinanet") \
+        else retinanet_config(cfg)
+    fields = dict(retinanet_head_norm=True, retinanet_box_loss="giou",
+                  retinanet_p6_on_c5=True)
+    fields.update(kw)
+    return dataclasses.replace(base, **fields)
+
+
+def fcos_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` as torchvision's ``fcos_resnet50_fpn``: P3..P7, one
+    stride-sized cell box a location, score threshold 0.2, NMS 0.6, 100
+    detections."""
+    return dataclasses.replace(
+        cfg or ModelConfig(), family="fcos", strides=(8, 16, 32, 64, 128),
+        anchor_sizes=(8.0, 16.0, 32.0, 64.0, 128.0), anchor_ratios=(1.0,),
+        score_thresh=0.2, nms_thresh=0.6, detections_per_image=100, **kw)
 
 
 # Left/right joint swap of the COCO person-17 skeleton under horizontal

@@ -1,5 +1,6 @@
 """Faster R-CNN, Mask R-CNN and Keypoint R-CNN ResNet-50-FPN: eval forward
-and training losses.
+and training losses; and ``make_detector``, which also builds the
+one-stage families (``models/retinanet.py``, ``models/fcos.py``).
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
 ``resnet50_fpn`` backbone with the MLP box head or, in the v2 recipe
@@ -8,8 +9,9 @@ tower and the ConvFC box head; with ``with_mask`` the mask head (normed in
 v2) or, with ``with_keypoints``, the keypoint head; and
 ``make_detector``).
 The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
-the JAX model, normalises them in float32 and runs the network on NCHW
-tensors in ``torch.channels_last`` memory.  Capacities are static:
+the JAX model, normalises them in float32 (``models.fpn.PyramidDetector``;
+``features`` gives P2..P6) and runs the network on NCHW tensors in
+``torch.channels_last`` memory.  Capacities are static:
 ``rpn_post_nms_topk_*`` proposals and ``detections_per_image`` detections
 per image, with validity masks.
 
@@ -36,25 +38,23 @@ from torch import nn
 from podtpu_torch.core.config import ModelConfig
 from podtpu_torch.models import roi_heads as rh
 from podtpu_torch.models import rpn as rpn_lib
-from podtpu_torch.models.fpn import BackboneWithFPN, FeaturePyramidNetwork
+from podtpu_torch.models.fcos import FCOS
+from podtpu_torch.models.fpn import (BackboneWithFPN, FeaturePyramidNetwork,
+                                     PyramidDetector)
 from podtpu_torch.models.resnet import (FrozenBatchNorm2d, ResNet,
                                         variance_scaling_)
+from podtpu_torch.models.retinanet import DTYPES, PRIOR_BIAS, RetinaNet
 from podtpu_torch.ops.anchors import grid_anchors
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-           "float16": torch.float16}
 
-
-class FasterRCNN(nn.Module):
+class FasterRCNN(PyramidDetector):
     def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        self.cfg = cfg
-        dt = _DTYPES[cfg.compute_dtype]
-        self.backbone = BackboneWithFPN(
+        dt = DTYPES[cfg.compute_dtype]
+        super().__init__(cfg, BackboneWithFPN(
             ResNet((3, 4, 6, 3), compute_dtype=dt,
                    trainable_stages=cfg.trainable_backbone_stages),
             FeaturePyramidNetwork((256, 512, 1024, 2048), cfg.fpn_channels,
-                                  compute_dtype=dt, norm=cfg.fpn_norm))
+                                  compute_dtype=dt, norm=cfg.fpn_norm)))
         anchors = grid_anchors(tuple(cfg.image_size), tuple(cfg.strides),
                                tuple(cfg.anchor_sizes),
                                tuple(cfg.anchor_ratios))
@@ -75,20 +75,6 @@ class FasterRCNN(nn.Module):
         else:
             self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
                                         cfg.num_classes, **box_kw)
-        self.register_buffer(
-            "pixel_mean", torch.tensor(cfg.pixel_mean).view(1, 3, 1, 1),
-            persistent=False)
-        self.register_buffer(
-            "pixel_std", torch.tensor(cfg.pixel_std).view(1, 3, 1, 1),
-            persistent=False)
-
-    def features(self, images: torch.Tensor):
-        """P2..P6 of ``[B, H, W, 3]`` images."""
-        x = images.permute(0, 3, 1, 2)  # NHWC memory = channels_last NCHW
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) / 255.0
-        x = (x - self.pixel_mean) / self.pixel_std
-        return self.backbone(x.contiguous(memory_format=torch.channels_last))
 
     def forward(self, images: torch.Tensor, gt: Optional[Dict] = None,
                 draws: Optional["ModelDraws"] = None,
@@ -235,10 +221,16 @@ def num_anchors(cfg: ModelConfig) -> int:
         tuple(cfg.anchor_ratios)))
 
 
+ONE_STAGE = ("retinanet", "fcos")
+
+
 def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
-               batch: int, num_gt: int) -> ModelDraws:
+               batch: int, num_gt: int) -> Optional[ModelDraws]:
     """The samplers' draws for ``batch`` images with ``num_gt`` gt slots
-    each, on ``generator``'s device."""
+    each, on ``generator``'s device; None for a one-stage model, which
+    draws nothing."""
+    if cfg.family in ONE_STAGE:
+        return None
     if generator is None:
         raise ValueError("training needs a torch.Generator or explicit draws")
     n = num_anchors(cfg)
@@ -253,26 +245,37 @@ def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family != "faster_rcnn":
-        return (f"family={cfg.family!r} (ROADMAP.md, open item 1: the "
-                "one-stage and SSD families)")
-    if cfg.backbone != "resnet50_fpn":
-        return (f"backbone={cfg.backbone!r} (ROADMAP.md, open item 1: the "
+    if cfg.family not in ("faster_rcnn",) + ONE_STAGE:
+        return (f"family={cfg.family!r} (ROADMAP.md, item 14: SSD and the "
                 "mobile trunks)")
+    if cfg.backbone != "resnet50_fpn":
+        return (f"backbone={cfg.backbone!r} (ROADMAP.md, item 14: SSD and "
+                "the mobile trunks)")
     if cfg.backbone_norm != "frozen":
         return (f"backbone_norm={cfg.backbone_norm!r} (ROADMAP.md, item 14: "
                 "trainable BatchNorm comes with the mobile trunks)")
-    if cfg.anchors_per_location != len(cfg.anchor_ratios) \
-            or len(cfg.strides) != 5:
+    if cfg.family == "faster_rcnn" and (
+            cfg.anchors_per_location != len(cfg.anchor_ratios)
+            or len(cfg.strides) != 5):
         return "anchor layouts other than one size per P2..P6 level"
+    if cfg.family in ONE_STAGE and len(cfg.strides) != 5:
+        return "one-stage pyramids other than P3..P7"
     return None
 
 
-def make_detector(cfg: ModelConfig) -> FasterRCNN:
-    """The model for ``cfg``; raises ``NotImplementedError`` for what the
-    port has not reached yet, naming the ROADMAP item that brings it, and
-    ``ValueError`` for a mask head beside a keypoint head or the v2 recipe
-    on another backbone than ResNet-50-FPN, as the JAX package does."""
+def make_detector(cfg: ModelConfig) -> nn.Module:
+    """The model for ``cfg``: ``FasterRCNN``, ``RetinaNet`` or ``FCOS``;
+    raises ``NotImplementedError`` for what the port has not reached yet,
+    naming the ROADMAP item that brings it, and ``ValueError`` for a mask
+    head beside a keypoint head, the v2 recipe on another backbone than
+    ResNet-50-FPN, or a one-stage family with a mask or keypoint head or
+    another backbone, as the JAX package does."""
+    if cfg.family in ONE_STAGE and (cfg.with_mask or cfg.with_keypoints
+                                    or cfg.backbone != "resnet50_fpn"):
+        raise ValueError(
+            f"family={cfg.family!r} supports neither with_mask/"
+            "with_keypoints (no RoI stage) nor non-ResNet backbones "
+            "(needs the P3-P7 FPN)")
     if cfg.with_mask and cfg.with_keypoints:
         raise ValueError(
             "with_mask and with_keypoints are mutually exclusive (the "
@@ -288,16 +291,31 @@ def make_detector(cfg: ModelConfig) -> FasterRCNN:
     if missing is not None:
         raise NotImplementedError(f"podtpu_torch does not port {missing} "
                                   "yet")
+    if cfg.family == "retinanet":
+        return RetinaNet(cfg)
+    if cfg.family == "fcos":
+        return FCOS(cfg)
     return FasterRCNN(cfg)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Initialise as flax does: ``lecun_normal`` convs and dense layers,
     ``variance_scaling(2, fan_out)`` for the stem, zero biases, identity
-    frozen BatchNorm.  Draws come from ``generator`` (a CPU generator; the
+    frozen BatchNorm; a one-stage head's convs ``normal(0.01)``, its
+    ``cls_logits`` bias at the prior ``-log(99)`` and its GroupNorms at
+    ones and zeros.  Draws come from ``generator`` (a CPU generator; the
     model must be on the CPU)."""
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.ConvTranspose2d):
+        if isinstance(mod, nn.Conv2d) and name.startswith("head."):
+            with torch.no_grad():
+                mod.weight.normal_(0.0, 0.01, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.fill_(PRIOR_BIAS if name.endswith("cls_logits")
+                                   else 0.0)
+        elif isinstance(mod, nn.GroupNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.ConvTranspose2d):
             # [in, out, kH, kW]: flax's fan_in is in * kH * kW.
             variance_scaling_(mod.weight.data.transpose(0, 1), 1.0,
                               "fan_in", generator)

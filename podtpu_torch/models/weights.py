@@ -24,6 +24,15 @@ RPN tower ``rpn.head.conv.{d}.0`` (``rpn_head/conv``, ``conv2``, ...), the
 ConvFC box head ``box_head.{i}.{0,1}`` (``box_head/conv{i+1}``,
 ``bn{i+1}``) and its Linear ``box_head.5`` (``box_head/fc``, permuted as
 fc6), and the normed mask tower ``mask_head.{i}.{0,1}``.
+
+The one-stage families follow ``retinanet_key_map``,
+``retinanet_v2_key_map`` and ``fcos_key_map``: the FPN over C3..C5
+(``fpn/lateral3..5``, ``post3..5``) with ``extra_blocks.p6``/``.p7``
+(``fpn/p6``, ``fpn/p7``), RetinaNet's subnets ``head.{classification,
+regression}_head.conv.{i}.0`` (``head/{cls,box}_conv{i}``) with v2's
+GroupNorm at ``.1`` (``{cls,box}_gn{i}``, ``weight`` <-> ``scale``), FCOS's
+``conv.{3i}`` and ``conv.{3i+1}``, ``cls_logits``, ``bbox_reg``
+(``box_deltas``) and ``bbox_ctrness`` (``ctrness``).
 """
 from __future__ import annotations
 
@@ -60,15 +69,52 @@ def _norm_layer(port: str, flax: str,
             + _bn(f"{port}.1", f"{flax}_bn"))
 
 
+def _group_norm(port: str, flax: str) -> List[Tuple[str, str, str, str]]:
+    """A GroupNorm's affine terms: torch ``weight``/``bias``, flax
+    ``scale``/``bias``, both trained."""
+    return [(f"{port}.weight", "params", f"{flax}/scale", "vector"),
+            (f"{port}.bias", "params", f"{flax}/bias", "vector")]
+
+
+def _one_stage_head(family: str,
+                    head_norm: bool) -> List[Tuple[str, str, str, str]]:
+    """The RetinaNet (``head_norm``: v2's GroupNorm subnets, convs without
+    bias) or FCOS head under torchvision's names."""
+    m = []
+    for tv, ours in (("classification_head", "cls"),
+                     ("regression_head", "box")):
+        for i in range(4):
+            if family == "fcos":
+                conv, norm = f"head.{tv}.conv.{3 * i}", \
+                    f"head.{tv}.conv.{3 * i + 1}"
+            else:
+                conv, norm = f"head.{tv}.conv.{i}.0", f"head.{tv}.conv.{i}.1"
+            m += _layer(conv, f"head/{ours}_conv{i}", "conv",
+                        bias=family == "fcos" or not head_norm)
+            if family == "fcos" or head_norm:
+                m += _group_norm(norm, f"head/{ours}_gn{i}")
+    m += _layer("head.classification_head.cls_logits", "head/cls_logits",
+                "conv")
+    m += _layer("head.regression_head.bbox_reg", "head/box_deltas", "conv")
+    if family == "fcos":
+        m += _layer("head.regression_head.bbox_ctrness", "head/ctrness",
+                    "conv")
+    return m
+
+
 def key_map(with_mask: bool = False, with_keypoints: bool = False,
             rpn_conv_depth: int = 1, box_head_type: str = "mlp",
-            fpn_norm: bool = False, mask_head_norm: bool = False
+            fpn_norm: bool = False, mask_head_norm: bool = False,
+            family: str = "faster_rcnn", retinanet_head_norm: bool = False
             ) -> List[Tuple[str, str, str, str]]:
     """``(port key, flax collection, flax path, kind)`` for every tensor of
     the Faster R-CNN ResNet-50-FPN detector with the MLP box head and, with
     ``with_mask``, Mask R-CNN's mask head, with ``with_keypoints`` Keypoint
     R-CNN's keypoint head; the other arguments are the ``ModelConfig``
-    fields of the v2 recipe."""
+    fields of the v2 recipe.  With ``family`` "retinanet" (v2 with
+    ``retinanet_head_norm``) or "fcos": the one-stage model, its FPN over
+    C3..C5 (``fpn/lateral3..5``, ``post3..5``, ``p6``, ``p7``) and its
+    head."""
     m = _layer("backbone.body.conv1", "backbone/conv1", "conv", bias=False)
     m += _bn("backbone.body.bn1", "backbone/bn1")
     for stage, blocks in enumerate(STAGE_SIZES, start=1):
@@ -83,6 +129,15 @@ def key_map(with_mask: bool = False, with_keypoints: bool = False,
                 m += _layer(f"{port}.downsample.0", f"{flax}/conv_down",
                             "conv", bias=False)
                 m += _bn(f"{port}.downsample.1", f"{flax}/bn_down")
+    if family in ("retinanet", "fcos"):
+        for i in range(3):
+            m += _layer(f"backbone.fpn.inner_blocks.{i}",
+                        f"fpn/lateral{i + 3}", "conv")
+            m += _layer(f"backbone.fpn.layer_blocks.{i}", f"fpn/post{i + 3}",
+                        "conv")
+        for p in ("p6", "p7"):
+            m += _layer(f"backbone.fpn.extra_blocks.{p}", f"fpn/{p}", "conv")
+        return m + _one_stage_head(family, retinanet_head_norm)
     for i in range(4):
         m += _norm_layer(f"backbone.fpn.inner_blocks.{i}",
                          f"fpn/lateral{i + 2}", fpn_norm)
@@ -176,6 +231,10 @@ def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
 
 def _flax_layout(params: Dict, frozen: Dict) -> Dict:
     """``key_map``'s arguments for the model whose flax trees these are."""
+    if "head" in params:
+        return dict(family="fcos" if "ctrness" in params["head"]
+                    else "retinanet",
+                    retinanet_head_norm="cls_gn0" in params["head"])
     rpn = params.get("rpn_head", {})
     return dict(with_mask="mask_head" in params,
                 with_keypoints="keypoint_head" in params,
@@ -189,6 +248,12 @@ def _flax_layout(params: Dict, frozen: Dict) -> Dict:
 
 def _state_dict_layout(state_dict: Dict) -> Dict:
     """``key_map``'s arguments for the model whose state dict this is."""
+    if "head.classification_head.cls_logits.weight" in state_dict:
+        fcos = "head.regression_head.bbox_ctrness.weight" in state_dict
+        return dict(family="fcos" if fcos else "retinanet",
+                    retinanet_head_norm=not fcos and (
+                        "head.classification_head.conv.0.1.weight"
+                        in state_dict))
     depth = 1
     while f"rpn.head.conv.{depth}.0.weight" in state_dict:
         depth += 1
@@ -256,9 +321,9 @@ def _unflatten(flat: Dict[Tuple, object]) -> Dict:
 
 
 # torchvision's two spellings of one tensor: newer releases nest the FPN's,
-# the RPN tower's and the mask tower's convolutions in a
-# ``Conv2dNormActivation`` (``.0``); the v2 recipe's layers are always
-# nested, the port's v1 layers never.
+# the RPN tower's, the mask tower's and RetinaNet's subnets' convolutions in
+# a ``Conv2dNormActivation`` (``.0``); the v2 recipe's layers are always
+# nested, the port's v1 two-stage layers never.
 _ALIASES = (
     (r"(backbone\.fpn\.(?:inner|layer)_blocks\.\d+)\.0\.(weight|bias)",
      r"\1.\2"),
@@ -270,6 +335,10 @@ _ALIASES = (
      lambda m: f"roi_heads.mask_head.mask_fcn{int(m[1]) + 1}.{m[2]}"),
     (r"roi_heads\.mask_head\.mask_fcn(\d)\.(weight|bias)",
      lambda m: f"roi_heads.mask_head.{int(m[1]) - 1}.0.{m[2]}"),
+    # RetinaNet v1's subnets before torchvision 0.13: a plain Sequential of
+    # conv, ReLU pairs.
+    (r"(head\.(?:classification|regression)_head\.conv)\.(\d*[02468])\."
+     r"(weight|bias)", lambda m: f"{m[1]}.{int(m[2]) // 2}.0.{m[3]}"),
 )
 
 
@@ -287,6 +356,34 @@ def _torchvision_alias(key: str, own: Dict) -> str:
     return key
 
 
+def _load_torchvision_by_path(model, state_dict: Dict, skip) -> int:
+    """Copy ``state_dict``'s tensors into ``model`` through the flax paths
+    they stand for, where the shapes agree; ``skip(key, shape, model's
+    shape)`` for the others.  Returns the number copied.  The paths are
+    ``key_map``'s for the checkpoint's own layout, as the JAX package picks
+    its key map by the checkpoint's keys, with either torchvision spelling
+    of a tensor (``_torchvision_alias``); on the model's side, its own."""
+    import torch
+
+    own = model.state_dict()
+    by_path = {(coll, path): k for k, coll, path, _ in
+               key_map(**_state_dict_layout(own))}
+    paths = {k: (coll, path) for k, coll, path, _ in
+             key_map(**_state_dict_layout(state_dict))}
+    copied = 0
+    with torch.no_grad():
+        for k, v in state_dict.items():
+            target = paths.get(_torchvision_alias(k, paths))
+            port = by_path.get(target)
+            if port is not None and tuple(own[port].shape) == tuple(v.shape):
+                own[port].copy_(v)
+                copied += 1
+            else:
+                skip(k, tuple(v.shape),
+                     tuple(own[port].shape) if port is not None else None)
+    return copied
+
+
 def load_pretrained(model, path: str, verbose: bool = True):
     """Load pretrained weights into ``model`` (in place); returns it.
 
@@ -300,7 +397,12 @@ def load_pretrained(model, path: str, verbose: bool = True):
     shape rule: a Mask R-CNN checkpoint's class-sized ``mask_fcn_logits``
     loads only when the class count matches, as the box predictor's, and a
     Keypoint R-CNN checkpoint's ``kps_score_lowres`` only when the
-    keypoint count does.
+    keypoint count does.  Each tensor goes through the flax path it stands
+    for (:func:`_load_torchvision_by_path`), so a checkpoint of any family
+    reads into a model of any family as the JAX package reads it: RetinaNet
+    v1's ``conv.{2i}`` or ``conv.{i}.0``, v2's GroupNorm at ``conv.{i}.1``,
+    FCOS's ``conv.{3i}`` and ``conv.{3i+1}``; a mis-sized ``cls_logits`` is
+    skipped.
     """
     import os
 
@@ -339,21 +441,18 @@ def load_pretrained(model, path: str, verbose: bool = True):
     else:
         payload = torch.load(path, map_location="cpu", weights_only=True)
         state_dict = payload.get("state_dict", payload)
-        own = model.state_dict()
         if verbose:
-            # As the JAX package recognises a v2 checkpoint: by its 2-deep
-            # RPN tower.
-            v2 = "rpn.head.conv.1.0.weight" in state_dict
-            print(f"[pretrained] torchvision {'v2' if v2 else 'v1'} layout")
-        with torch.no_grad():
-            for k, v in state_dict.items():
-                k = _torchvision_alias(k, own)
-                if k in own and tuple(own[k].shape) == tuple(v.shape):
-                    own[k].copy_(v)
-                    copied += 1
-                else:
-                    skip(k, tuple(v.shape),
-                         tuple(own[k].shape) if k in own else None)
+            # As the JAX package recognises the layouts: a v2 Faster R-CNN
+            # by its 2-deep RPN tower, a RetinaNet v2 by its GroupNorms.
+            layout = _state_dict_layout(state_dict)
+            if layout.get("family"):
+                name = layout["family"] + (
+                    "_v2" if layout["retinanet_head_norm"] else "")
+            else:
+                name = "v2" if "rpn.head.conv.1.0.weight" in state_dict \
+                    else "v1"
+            print(f"[pretrained] torchvision {name} layout")
+        copied = _load_torchvision_by_path(model, state_dict, skip)
     if verbose:
         print(f"[pretrained] {copied} tensors loaded, {skipped} skipped "
               f"from {path}")

@@ -73,6 +73,59 @@ def decode_boxes(codes: torch.Tensor, anchors: torch.Tensor,
         [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
+def box_center_size(boxes: torch.Tensor):
+    """(cx, cy, w, h) of xyxy boxes."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return boxes[..., 0] + 0.5 * w, boxes[..., 1] + 0.5 * h, w, h
+
+
+def encode_boxes_linear(anchors: torch.Tensor, boxes: torch.Tensor,
+                        normalize_by_size: bool = True) -> torch.Tensor:
+    """(l, t, r, b) distances from each anchor's centre to the sides of the
+    paired box, divided by the anchor's width and height (floored at 1e-6)
+    with ``normalize_by_size`` (torchvision's ``BoxLinearCoder``, FCOS's
+    coder); the two broadcast on the leading axes."""
+    acx, acy, aw, ah = box_center_size(anchors)
+    codes = torch.stack([acx - boxes[..., 0], acy - boxes[..., 1],
+                         boxes[..., 2] - acx, boxes[..., 3] - acy], dim=-1)
+    if normalize_by_size:
+        codes = codes / torch.stack([aw, ah, aw, ah], dim=-1).clamp(min=1e-6)
+    return codes
+
+
+def decode_boxes_linear(codes: torch.Tensor, anchors: torch.Tensor,
+                        normalize_by_size: bool = True) -> torch.Tensor:
+    """Invert :func:`encode_boxes_linear`: xyxy boxes from (l, t, r, b)."""
+    acx, acy, aw, ah = box_center_size(anchors)
+    if normalize_by_size:
+        codes = codes * torch.stack([aw, ah, aw, ah], dim=-1)
+    return torch.stack([acx - codes[..., 0], acy - codes[..., 1],
+                        acx + codes[..., 2], acy + codes[..., 3]], dim=-1)
+
+
+def elementwise_giou(a: torch.Tensor, b: torch.Tensor,
+                     eps: float = 1e-7) -> torch.Tensor:
+    """Generalised IoU of paired ``[..., 4]`` boxes (the loss is ``1 -
+    giou``); ``eps`` in both divisions keeps value and gradient finite on
+    zero-area boxes, since callers mask slots by multiplication."""
+    ix = (torch.minimum(a[..., 2], b[..., 2])
+          - torch.maximum(a[..., 0], b[..., 0]))
+    iy = (torch.minimum(a[..., 3], b[..., 3])
+          - torch.maximum(a[..., 1], b[..., 1]))
+    # jnp.clip's maximum: a gradient at 0 splits as JAX's does.
+    zero = ix.new_zeros(())
+    inter = torch.maximum(ix, zero) * torch.maximum(iy, zero)
+    union = box_area(a) + box_area(b) - inter
+    iou = inter / (union + eps)
+    ex = (torch.maximum(a[..., 2], b[..., 2])
+          - torch.minimum(a[..., 0], b[..., 0]))
+    ey = (torch.maximum(a[..., 3], b[..., 3])
+          - torch.minimum(a[..., 1], b[..., 1]))
+    enclose = ex * ey
+    return iou - (enclose - union) / (enclose + eps)
+
+
 def clip_boxes(boxes: torch.Tensor, image_size) -> torch.Tensor:
     """Clip to ``[0, W] x [0, H]``; ``image_size`` is (H, W)."""
     h, w = image_size

@@ -145,6 +145,26 @@ def nms_keep_segments(boxes: torch.Tensor, scores: torch.Tensor,
                             iou_threshold, order)
 
 
+def batched_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
+                     idxs: torch.Tensor, iou_threshold: float,
+                     valid: torch.Tensor,
+                     presorted: bool = False) -> torch.Tensor:
+    """Category-aware NMS of ``B`` images at once: ``[B, N, 4]`` boxes,
+    ``[B, N]`` scores, category ``idxs`` and validity -> ``[B, N]`` keep
+    mask.  Each image's boxes are shifted by ``idx * (m + 1)``, with ``m``
+    the largest coordinate of its valid boxes (torchvision's
+    ``batched_nms``), so boxes of different categories never overlap and
+    one segment an image, one kernel launch for the batch, covers every
+    category.  ``presorted`` as in :func:`nms_keep_segments`."""
+    if boxes.shape[1] == 0:
+        return torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
+    coords = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    max_coord = coords.amax(dim=(-2, -1)) + 1.0               # [B]
+    offsets = idxs.to(boxes.dtype) * max_coord[:, None]
+    return nms_keep_segments(boxes + offsets[..., None], scores,
+                             iou_threshold, valid, presorted=presorted)
+
+
 def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy NMS keep mask ``[N]`` over ``[N, 4]`` xyxy boxes, in the
@@ -169,12 +189,11 @@ def nms_select(boxes: torch.Tensor, scores: torch.Tensor,
     """NMS then top-k: fixed-size ``(boxes[k, 4], scores[k], valid[k])``.
     With ``idxs``, boxes of different categories never suppress each other
     (torchvision's coordinate-offset trick)."""
-    if idxs is not None and boxes.shape[0]:
-        coords = boxes if valid is None else torch.where(
-            valid[:, None], boxes, torch.zeros_like(boxes))
-        offsets = idxs.to(boxes.dtype) * (coords.max() + 1.0)
-        keep = nms_keep(boxes + offsets[:, None], scores, iou_threshold,
-                        valid)
+    if idxs is not None:
+        v = torch.ones(scores.shape, dtype=torch.bool, device=scores.device) \
+            if valid is None else valid
+        keep = batched_nms_keep(boxes[None], scores[None], idxs[None],
+                                iou_threshold, v[None])[0]
     else:
         keep = nms_keep(boxes, scores, iou_threshold, valid)
     idx, out_valid = topk_by_score(scores, keep, k)

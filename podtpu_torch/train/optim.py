@@ -52,12 +52,15 @@ def trainable_mask_fn(model_cfg: ModelConfig) -> Callable[[str], bool]:
     return mask
 
 
-def norm_param_mask(name: str) -> bool:
-    """True for trainable normalisation parameters: GroupNorm scale and
-    bias (modules named ``gn*`` or ``*_gn*``) and SSD's ``l2norm_scale``.
-    Frozen BatchNorm holds buffers, so it never reaches the optimiser."""
-    return any(k.startswith("gn") or "_gn" in k or k == "l2norm_scale"
-               for k in name.split("."))
+def norm_param_mask(name: str, norms=()) -> bool:
+    """True for trainable normalisation parameters: those named in
+    ``norms`` (the model's GroupNorm weights and biases, which carry
+    torchvision's names), GroupNorm scale and bias of modules named ``gn*``
+    or ``*_gn*``, and SSD's ``l2norm_scale``.  Frozen BatchNorm holds
+    buffers, so it never reaches the optimiser."""
+    return name in norms or any(
+        k.startswith("gn") or "_gn" in k or k == "l2norm_scale"
+        for k in name.split("."))
 
 
 class SGDBF16Momentum(torch.optim.Optimizer):
@@ -93,12 +96,12 @@ class SGDBF16Momentum(torch.optim.Optimizer):
                 p.sub_(group["lr"] * m)
 
 
-def _groups(train_cfg: TrainConfig, named) -> List[dict]:
+def _groups(train_cfg: TrainConfig, named, norm_names=()) -> List[dict]:
     if train_cfg.norm_weight_decay is None:
         return [{"params": [p for _, p in named],
                  "weight_decay": train_cfg.weight_decay}]
-    rest = [p for n, p in named if not norm_param_mask(n)]
-    norms = [p for n, p in named if norm_param_mask(n)]
+    rest = [p for n, p in named if not norm_param_mask(n, norm_names)]
+    norms = [p for n, p in named if norm_param_mask(n, norm_names)]
     return [g for g in (
         {"params": rest, "weight_decay": train_cfg.weight_decay},
         {"params": norms, "weight_decay": float(train_cfg.norm_weight_decay)},
@@ -112,12 +115,15 @@ def make_optimizer(train_cfg: TrainConfig,
     mask = trainable_mask_fn(model.cfg)
     named = [(n, p) for n, p in model.named_parameters()
              if p.requires_grad and mask(n)]
+    norm_names = {f"{m}.{n}" for m, mod in model.named_modules()
+                  if isinstance(mod, torch.nn.GroupNorm)
+                  for n, _ in mod.named_parameters(recurse=False)}
     if train_cfg.optimiser == "sgd":
         if train_cfg.fused_sgd and train_cfg.norm_weight_decay is not None:
             raise ValueError(
                 "fused_sgd supports a single weight-decay rate; unset "
                 "norm_weight_decay (or fused_sgd) for the split chain")
-        groups = _groups(train_cfg, named)
+        groups = _groups(train_cfg, named, norm_names)
         if train_cfg.momentum_dtype == "bfloat16":
             return SGDBF16Momentum(groups, lr=train_cfg.lr,
                                    momentum=train_cfg.momentum)
@@ -134,7 +140,7 @@ def make_optimizer(train_cfg: TrainConfig,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=0.0)
     if train_cfg.optimiser == "adamw":
-        return torch.optim.AdamW(_groups(train_cfg, named),
+        return torch.optim.AdamW(_groups(train_cfg, named, norm_names),
                                  lr=train_cfg.adam_lr, betas=(0.9, 0.999),
                                  eps=1e-8)
     raise ValueError("Optimiser must be one of 'sgd', 'adam' or 'adamw'")

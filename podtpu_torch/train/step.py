@@ -32,7 +32,8 @@ def images_to_float(images: torch.Tensor) -> torch.Tensor:
 
 class TrainDraws(NamedTuple):
     augment: AugmentDraws
-    model: ModelDraws
+    # The samplers' draws; None for a one-stage model, which draws nothing.
+    model: Optional[ModelDraws]
     # [B, G] uniforms: copy-paste keeps the neighbour's gt where < 0.5
     # (only with DataConfig.copy_paste).
     copy_paste: Optional[torch.Tensor] = None

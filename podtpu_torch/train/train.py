@@ -29,8 +29,9 @@ import numpy as np
 import torch
 
 from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
-                                      fasterrcnn_v2_config,
-                                      model_config_from_dict)
+                                      fasterrcnn_v2_config, fcos_config,
+                                      model_config_from_dict,
+                                      retinanet_config, retinanet_v2_config)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
 from podtpu_torch.data.loader import Loader
@@ -152,11 +153,9 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
             "family='faster_rcnn_v2' requires the ResNet-50-FPN backbone "
             "(torchvision has no v2 recipe for the mobilenet extractors)")
     missing = None
-    if fam in ("retinanet", "fcos"):
-        missing = f"family={family or fam!r} (item 13: one-stage families)"
-    elif fam in _TIED_BACKBONE:
+    if fam in _TIED_BACKBONE:
         missing = f"family={fam!r} (item 14: SSD and the mobile trunks)"
-    elif fam != "faster_rcnn":
+    elif fam not in ("faster_rcnn", "retinanet", "fcos"):
         missing = f"family={fam!r}"
     elif net != "resnet50_fpn":
         missing = f"backbone={net!r} (item 14: the mobile trunks)"
@@ -223,6 +222,13 @@ def train(project: Project,
         # The v2 recipe's heads; the stored family stays 'faster_rcnn' (the
         # v2 fields rebuild the model from config.json).
         model_cfg = fasterrcnn_v2_config(model_cfg)
+    elif family == "retinanet_v2":
+        # GroupNorm subnets, GIoU, P6 from C5; stored as 'retinanet'.
+        model_cfg = retinanet_v2_config(model_cfg)
+    elif family == "retinanet" and model_cfg.family != "retinanet":
+        model_cfg = retinanet_config(model_cfg)
+    elif family == "fcos" and model_cfg.family != "fcos":
+        model_cfg = fcos_config(model_cfg)
 
     print()
     print("=" * 80)

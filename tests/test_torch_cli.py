@@ -334,8 +334,8 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["classify-crops", "-i", "crops", "--model", "m"], "item 15"),
     (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
     (["serve", "--model", "m", "--exported"], "item 17"),
-    (["train-object-detector", "-t", "5", "--family", "retinanet"],
-     "item 13"),
+    (["train-object-detector", "-t", "5", "--family", "ssd"],
+     "item 14"),
     (["train-object-detector", "-t", "5", "--backbone", "mobilenet_v2"],
      "item 14"),
     (["train-object-detector", "-t", "5", "--num-devices", "2"], "item 18"),

@@ -507,7 +507,7 @@ class TestResume:
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(family="retinanet"), "item 13"),
+    (dict(family="ssd"), "item 14"),
     (dict(family="ssdlite"), "item 14"),
     (dict(backbone="mobilenet_v3_fpn"), "item 14"),
     (dict(num_devices=2), "item 18"),

@@ -239,7 +239,7 @@ class TestEvalForward:
         cfg = model_config_from_dict(dataclasses.asdict(mobilenet_config()))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_detector(cfg)
-        for kw in (dict(family="retinanet"), dict(backbone_norm="batch")):
+        for kw in (dict(family="ssd"), dict(backbone_norm="batch")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 make_detector(ModelConfig(**kw))
         # The v2 recipe is ported, its normed mask tower too.

@@ -173,7 +173,8 @@ class TestDeviceAndImports:
             " 'podtpu_torch.core.logging', 'podtpu_torch.shared.utils',"
             " 'podtpu_torch.infer.crop', 'podtpu_torch.cli',"
             " 'podtpu_torch.core.native', 'podtpu_torch.data.coco_import',"
-            " 'podtpu_torch.data.cvat.client', 'podtpu_torch.data.cvat.xml']\n"
+            " 'podtpu_torch.data.cvat.client', 'podtpu_torch.data.cvat.xml',"
+            " 'podtpu_torch.models.retinanet', 'podtpu_torch.models.fcos']\n"
             "assert all(m in sys.modules for m in train), train\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('podtpu_torch.')]), bad)\n")
