@@ -146,15 +146,44 @@ Phases, one JSON line each:
    ``infer`` at the median best score (boxes kept), 4 server requests; K1
    once per eval and infer batch, each segment's valid boxes printed.
 
+15. tiled and classifier: ``infer_tiled`` on a seeded 3000 x 4000 grey
+   scan (400 filled boxes of 16-256 px, the driver's images' look) with
+   the driver phase's trained Faster R-CNN, batch 8: ``tiled`` at its
+   1024^2 canvas (overlap 0.25: 20 tiles, 3 batches, the last padded with
+   4 zero tiles) and ``tiled_2048`` at ``tile_size=2048`` (6 tiles, one
+   batch), each first at threshold 0 (the threshold: 0.5, or the score of
+   the 2 x tiles-th best merged detection when lower) with its first
+   batch's K1 and K2 inputs captured, then counted: K1 twice and K2 once
+   a batch exactly; tiles/s with the model load apart, the merge's ms,
+   detections before and after it, peak memory.  ``tiled_tiff``: the
+   scan as a 16-bit grey TIFF read from its path gives the uint8 run's
+   detections; ``tiled_cli``: ``infer-object-detector-tiled`` on its PNG
+   through ``podtpu_torch.cli.main``, the same detections and launches
+   (both need Pillow).  ``tiled_mask``: a 2048^2 scan with the mask
+   driver's trained model (9 tiles, K1 and K2 twice a batch, polygons
+   and their host seconds); ``tiled_one_stage``: the full scan with the
+   RetinaNet v2 driver's model (K1 once a batch, 8 segments of 5,000).
+   ``classifier_reference``: a float32 ``CropClassifier`` at 128^2 on the
+   card against the CPU (logits within 1e-4; one AdamW step: loss 1e-5
+   relative, gradients 2e-3 of each tensor's largest, parameters 1e-6
+   where Adam's ``sqrt(v_hat)`` is at least 1e-5, twice the learning rate
+   elsewhere; seeds with ReLU sign flips passed over).  ``classifier``:
+   ``train_classifier`` on 4 x 64 seeded PNG crops (128^2, batch 32, 3
+   epochs), ``classify_crops`` on them, then ``train-crop-classifier``
+   and ``classify-crops`` through the CLI; images/s, each epoch's
+   seconds, held-out accuracy, peak memory; no kernel of ours launched.
+
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
 ``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
 the CLI's model, captured after the timed runs; the same for the v2
 serving batch and v2 training step, the one-stage serving batches and
-the one-stage drivers' ``evaluate_model`` and ``infer`` calls): as
+the one-stage drivers' ``evaluate_model`` and ``infer`` calls, and the
+first batch of each tiled path): as
 the path calls it and in score order, against the plain version, twice,
 with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
-batches, on the mask and keypoint calls at 14 and on the v2 step's call
+batches, on the tiled paths' first batches (at 7, and 14 for the mask
+model), on the mask and keypoint calls at 14 and on the v2 step's call
 at 7 against its float32 plain version, twice, with times; and K3 on the
 mask, mask v2 and keypoint steps' gradients at 14 and the v2 step's at 7
 against its float32 plain backward, on the gradient
@@ -2795,7 +2824,7 @@ def shape_images(rng, n, size, with_gt=True, kind="polygons"):
 
 
 def head_driver_phase(torch, card, dev, model="mask", config=None,
-                      size=(1024, 1024), n_images=24, n_infer=8):
+                      size=(1024, 1024), n_images=24, n_infer=8, after=None):
     """The training driver of a mask or keypoint model (``model``) at the
     ``Config()`` defaults on a seeded in-memory project for 2 epochs:
     ``train(with_mask=True)`` on ellipse polygons (rectangles where Pillow,
@@ -2809,7 +2838,8 @@ def head_driver_phase(torch, card, dev, model="mask", config=None,
     1024^2; a keypoint model attaches each detection's keypoints); and one
     batch of the ``DetectionServer`` at that score, of the four images with
     the best scores (polygons for a mask model, boxes alone for a keypoint
-    model).  Returns the launches by path."""
+    model).  ``after(model_dir)``, when given, runs on the trained model
+    directory before it is removed.  Returns the launches by path."""
     from podtpu_torch.core.config import Config
     from podtpu_torch.data import Project, imageio
     from podtpu_torch.data.annotation import PolygonAnnotation
@@ -2895,6 +2925,8 @@ def head_driver_phase(torch, card, dev, model="mask", config=None,
                       for m in order[:4]]
         finally:
             server.close()
+        if after is not None:
+            after(model_dir)
     finally:
         imageio.read_rgb = read_rgb
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3112,7 +3144,8 @@ def capture_nms_out(nms, fn, *args, **kwargs):
 
 
 def one_stage_driver_phase(torch, card, dev, model, config=None,
-                           size=(1024, 1024), n_images=24, n_infer=8):
+                           size=(1024, 1024), n_images=24, n_infer=8,
+                           after=None):
     """``train(family=model)`` (a one-stage family) at the ``Config()``
     defaults on the driver phase's 24 in-memory images for 2 epochs, from
     a model directory of seeded weights whose class prior is 0.1 (0.2 for
@@ -3125,8 +3158,10 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
     directory keeps the family's fields; every loss is finite; training
     launches K1 once per eval batch of its epochs and no other kernel,
     ``evaluate_model`` and ``infer`` K1 once a batch, each segment's valid
-    boxes counted.  Returns the launches by path and the K1 inputs of
-    ``evaluate_model`` and ``infer``, as the counted runs made them."""
+    boxes counted.  ``after(model_dir)``, when given, runs on the trained
+    model directory before it is removed.  Returns the launches by path
+    and the K1 inputs of ``evaluate_model`` and ``infer``, as the counted
+    runs made them."""
     from podtpu_torch.core.config import Config
     from podtpu_torch.data import imageio
     from podtpu_torch.models.detector import init_parameters, make_detector
@@ -3161,6 +3196,8 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
             test_project, model_dir, batch_size=4, device=dev)
         inf = infer_and_serve(torch, driver, dev, model_dir, images,
                               infer_project, infer_metas)
+        if after is not None:
+            after(model_dir)
     finally:
         imageio.read_rgb = read_rgb
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3220,6 +3257,509 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
              (f"{model}_infer", infer_calls)])
 
 
+# -- phase 15: tiled scan inference and the crop classifier ------------------
+
+SCAN_HW = (3000, 4000)     # a scan that is not a multiple of the stride
+TILED_PER_BATCH = {"faster": (2, 1), "mask": (2, 2), "retinanet_v2": (1, 0)}
+
+
+def synthetic_scan(rng, hw=SCAN_HW, n=400):
+    """A grey uint8 scan (R = G = B) drawn like the driver's images: dark
+    noise with ``n`` filled boxes of 16-256 px, a brightness per label."""
+    h, w = hw
+    img = rng.integers(0, 256, (h, w), dtype=np.uint8) // 3
+    wh = rng.uniform(16, 256, (n, 2))
+    xy = rng.uniform(0, 1, (n, 2)) * (np.array([w, h]) - wh)
+    labels = rng.integers(1, len(DRIVER_LABELS) + 1, n)
+    for (x, y), (bw, bh), lab in zip(xy, wh, labels):
+        img[int(y):int(y + bh), int(x):int(x + bw)] = 120 + 40 * int(lab)
+    return np.repeat(img[..., None], 3, axis=2)
+
+
+@contextlib.contextmanager
+def tiled_hooks(torch, tiled, rec, trace=True):
+    """Record, around ``infer_tiled``, the model load's seconds (reading
+    the directory and building the model on the card), the merge's
+    milliseconds with its detections before and after, and the host
+    seconds of tracing polygons; with ``trace`` False no polygon is
+    traced."""
+    saved = {k: getattr(tiled, k) for k in (
+        "load_model", "build_inference_model", "cross_tile_nms",
+        "mask_to_annotation")}
+
+    def timed(name, key, sync=False):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            rec[key] = rec.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    def merge(dets, thr):
+        t0 = time.perf_counter()
+        out = saved["cross_tile_nms"](dets, thr)
+        rec["merge_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["before_merge"], rec["after_merge"] = len(dets), len(out)
+        return out
+
+    tiled.load_model = timed("load_model", "load_s")
+    tiled.build_inference_model = timed("build_inference_model", "load_s",
+                                        sync=True)
+    tiled.cross_tile_nms = merge
+    tiled.mask_to_annotation = timed("mask_to_annotation", "polygon_s") \
+        if trace else (lambda *a, **k: None)
+    try:
+        yield rec
+    finally:
+        for k, v in saved.items():
+            setattr(tiled, k, v)
+
+
+def same_detections(got, want):
+    """Detection lists equal as sets: one match each with the same label,
+    box within 1e-3 px and score within 1e-4; returns the largest box and
+    score differences."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} detections against {len(want)}")
+    used, box_err, score_err = set(), 0.0, 0.0
+    for w in want:
+        hits = [i for i, g in enumerate(got) if i not in used
+                and g.label == w.label
+                and np.abs(np.subtract(g.box, w.box)).max() <= 1e-3
+                and abs(g.score - w.score) <= 1e-4]
+        if not hits:
+            raise AssertionError(f"no match for {w}")
+        used.add(hits[0])
+        g = got[hits[0]]
+        box_err = max(box_err, float(np.abs(np.subtract(g.box, w.box)).max()))
+        score_err = max(score_err, abs(g.score - w.score))
+    return box_err, score_err
+
+
+def tiled_run(torch, card, dev, model_dir, scan, name, model="faster",
+              tile_size=None, batch_size=8, per_tile=2):
+    """``infer_tiled`` of ``scan`` with the model in ``model_dir``: first
+    uncounted at threshold 0 without polygons (the threshold: 0.5, or the
+    score of the ``per_tile`` x tiles-th best merged detection when that
+    is lower, so that every tile keeps a few), with the first batch's K1
+    and K2 inputs captured; then the counted run: K1 and K2 exactly
+    ``TILED_PER_BATCH[model]`` a batch, tiles/s with the model load apart,
+    the merge's ms, detections before and after it, polygons and their
+    host seconds, peak memory.  Every detection lies in the scan, above
+    the threshold, sorted by score.  Returns the line, the detections and
+    the captured calls."""
+    from podtpu_torch.infer import tiled
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train import train as driver
+    from podtpu_torch.train.checkpoints import load_model
+
+    cfg = load_model(model_dir)[2]
+    tile = tile_size or cfg.image_size[0]
+    h, w = scan.shape[:2]
+    stride = max(1, int(round(tile * 0.75)))
+    tiles = len(tiled.tile_origins(h, tile, stride)) * len(
+        tiled.tile_origins(w, tile, stride))
+    batches = -(-tiles // batch_size)
+    k1, k2 = TILED_PER_BATCH[model]
+    kw = dict(batch_size=batch_size, tile_size=tile_size, device=dev)
+    with tiled_hooks(torch, tiled, {}, trace=False), \
+            contextlib.redirect_stdout(sys.stderr):
+        out = []
+        roi_calls = capture_roi_align(lambda: out.append(capture_nms(
+            nms, lambda: out.append(tiled.infer_tiled(scan, model_dir,
+                                                      threshold=0.0, **kw)),
+            limit=k1)), limit=k2)
+        nms_calls, every = out[1], out[0]
+    scores = sorted((d.score for d in every), reverse=True)
+    rank = min(per_tile * tiles, len(scores)) - 1
+    threshold = min(0.5, scores[rank] - 1e-6) if scores else 0.5
+    rec = {}
+    with tiled_hooks(torch, tiled, rec, trace=model == "mask"):
+        torch.cuda.reset_peak_memory_stats()
+        dets, launches, _, seconds = driven(
+            torch, driver, tiled.infer_tiled, scan, model_dir,
+            threshold=threshold, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    scan_s = seconds - rec["load_s"]
+    line = {"phase": name, "model": model_title(model),
+            "scan_hw": [h, w], "dtype": str(scan.dtype), "tile": tile,
+            "overlap": 0.25, "stride": stride, "tiles": tiles,
+            "batch_size": batch_size, "batches": batches,
+            "padded_tiles": batches * batch_size - tiles,
+            "threshold": threshold, "wall_s": seconds,
+            "model_load_s": rec["load_s"], "scan_s": scan_s,
+            "tiles_per_s": tiles / scan_s,
+            "batch_ms": scan_s / batches * 1e3,
+            "merge_ms": rec["merge_ms"],
+            "detections_before_merge": rec["before_merge"],
+            "detections_after_merge": rec["after_merge"],
+            "detections_at_threshold_0": len(every),
+            "polygons": sum(d.polygon is not None for d in dets),
+            "polygon_host_s": rec.get("polygon_s"),
+            "launches": launches, "peak_memory_gib": peak, "card": card}
+    emit(line)
+    bad = []
+    want = {"nms": k1 * batches, "roi_align_fwd": k2 * batches,
+            "roi_align_bwd": 0}
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if len(nms_calls) != k1 or len(roi_calls) != k2:
+        bad.append(f"captured {len(nms_calls)} K1 and {len(roi_calls)} K2 "
+                   f"calls of the first batch, expected {k1} and {k2}")
+    boxes = np.asarray([d.box for d in dets]).reshape(-1, 4)
+    sc = [d.score for d in dets]
+    cx, cy = (boxes[:, 0] + boxes[:, 2]) / 2, (boxes[:, 1] + boxes[:, 3]) / 2
+    if not dets or not np.isfinite(boxes).all() or not (
+            (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)).all() \
+            or min(sc) <= threshold or sc != sorted(sc, reverse=True) \
+            or not all(1 <= d.label < cfg.num_classes for d in dets):
+        bad.append("no detection, or one outside the scan, under the "
+                   "threshold, out of order or of an unknown label")
+    if not 0 < rec["after_merge"] <= rec["before_merge"]:
+        bad.append("the merge kept no detection or made some")
+    if model == "mask" and not line["polygons"]:
+        bad.append("no polygon")
+    if bad:
+        raise AssertionError(f"{name}: {bad}")
+    return line, dets, (nms_calls, roi_calls)
+
+
+def tiled_phases(torch, card, dev, model_dir, scan_hw=SCAN_HW,
+                 big_tile=2048):
+    """Phase 15a on the driver phase's trained Faster R-CNN: ``tiled`` at
+    the model's 1024^2 canvas (20 tiles, 3 batches of 8) and at
+    ``tile_size=2048`` (6 tiles, 1 batch); ``tiled_tiff``: the same scan as
+    a 16-bit grey TIFF read from its path (decoded to the uint8 scan) gives
+    the uint8 run's detections; ``tiled_cli``: ``infer-object-detector-
+    tiled`` on the scan's PNG through ``podtpu_torch.cli.main``, whose JSON
+    holds the library call's detections.  The TIFF and CLI parts need
+    Pillow.  Returns the launches by path and the captured K1 and K2
+    calls by path."""
+    from podtpu_torch import cli
+    from podtpu_torch.infer import tiled
+    from podtpu_torch.train import train as driver
+    from podtpu_torch.train.checkpoints import read_labels
+
+    scan = synthetic_scan(np.random.default_rng(SEED + 20), scan_hw)
+    launches, nms_calls, roi_calls = {}, [], []
+    runs = {}
+    for name, tile_size in (("tiled", None), (f"tiled_{big_tile}",
+                                              big_tile)):
+        line, dets, (k1, k2) = tiled_run(torch, card, dev, model_dir, scan,
+                                         name, tile_size=tile_size)
+        runs[name] = (line, dets)
+        launches[name] = line["launches"]
+        nms_calls.append((name, k1))
+        roi_calls.append((name, k2))
+    if importlib.util.find_spec("PIL") is None:
+        emit({"phase": "tiled_tiff, tiled_cli", "ran": False,
+              "why": "Pillow, which reads image files for infer_tiled, does "
+                     "not import here; the CPU tests "
+                     "(tests/test_torch_tiled.py) run both", "card": card})
+        return launches, nms_calls, roi_calls
+    from PIL import Image
+
+    line, dets = runs["tiled"]
+    tmp = tempfile.mkdtemp(prefix="podtpu_tiled_")
+    try:
+        tif = os.path.join(tmp, "scan16.tif")
+        Image.fromarray(scan[..., 0].astype(np.uint16) * 257).save(tif)
+        with contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            from_tif = tiled.infer_tiled(tif, model_dir,
+                                         threshold=line["threshold"],
+                                         device=dev)
+            tif_s = time.perf_counter() - t0
+        box_err, score_err = same_detections(from_tif, dets)
+        emit({"phase": "tiled_tiff", "path": "16-bit grey TIFF",
+              "wall_s": tif_s, "detections": len(from_tif),
+              "box_max_abs_err": box_err, "score_max_abs_err": score_err,
+              "card": card})
+        png = os.path.join(tmp, "scan.png")
+        with open(png, "wb") as fp:
+            fp.write(png_bytes(scan))
+        out_json = os.path.join(tmp, "dets.json")
+        parent, name = os.path.split(model_dir)
+        argv = ["infer-object-detector-tiled", "-i", png, "--model-dir",
+                parent, "--model", name, "--threshold",
+                repr(line["threshold"]), "-o", out_json]
+        _, cli_launches, _, seconds = driven(torch, driver, cli.main, argv,
+                                             device=dev)
+        with open(out_json) as fp:
+            rows = json.load(fp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    labels = read_labels(os.path.join(model_dir, "labels.txt"))
+    from_cli = [tiled.TiledDetection(tuple(r["box"]), r["score"],
+                                     labels.index(r["label"]) + 1)
+                for r in rows]
+    box_err, score_err = same_detections(from_cli, dets)
+    launches["tiled_cli"] = cli_launches
+    emit({"phase": "tiled_cli", "argv": argv[:1] + argv[5:8],
+          "wall_s": seconds, "detections": len(rows),
+          "box_max_abs_err": box_err, "score_max_abs_err": score_err,
+          "launches": cli_launches, "card": card})
+    if cli_launches != line["launches"]:
+        raise AssertionError(f"tiled_cli: launches {cli_launches}, the "
+                             f"library call's {line['launches']}")
+    return launches, nms_calls, roi_calls
+
+
+def tiled_head_phase(torch, card, dev, model_dir, model, out,
+                     scan_hw=SCAN_HW, mask_side=2048):
+    """Phase 15b: ``infer_tiled`` at batch 8 on a trained mask
+    (``tiled_mask``: a 2048^2 scan, 9 tiles, polygons traced on the host)
+    or one-stage model (``tiled_one_stage``: the full scan, K1 on 8
+    segments an image a launch); adds the launches and the first batch's
+    captured calls to ``out``."""
+    name = "tiled_mask" if model == "mask" else "tiled_one_stage"
+    scan = synthetic_scan(np.random.default_rng(SEED + 21), scan_hw)
+    if model == "mask":
+        scan = np.ascontiguousarray(scan[:mask_side, :mask_side])
+    line, _, (k1, k2) = tiled_run(torch, card, dev, model_dir, scan, name,
+                                  model=model)
+    out["launches"][name] = line["launches"]
+    out["nms"].append((name, k1))
+    if k2:
+        out["roi"].append((name, k2))
+
+
+CLASSIFIER_CLASSES = ("coccolith", "diatom", "foraminifera", "radiolarian")
+
+
+def crop_tree(root, rng, per_class=64):
+    """``per_class`` seeded PNG crops of 24-200 px for each of
+    ``CLASSIFIER_CLASSES`` under ``root/<class>/``: dark noise with a
+    filled centre whose channel and brightness tell the class."""
+    for c, label in enumerate(CLASSIFIER_CLASSES):
+        os.makedirs(os.path.join(root, label))
+        for i in range(per_class):
+            h, w = (int(v) for v in rng.integers(24, 200, 2))
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8) // 3
+            img[h // 4: 3 * h // 4, w // 4: 3 * w // 4, c % 3] = \
+                140 + 60 * (c // 3)
+            with open(os.path.join(root, label, f"crop_{i:03d}.png"),
+                      "wb") as fp:
+                fp.write(png_bytes(img))
+
+
+def adam_apart(torch, got, want, v_hat, lr):
+    """Largest differences of parameters after an AdamW step: where
+    ``sqrt(v_hat)`` is at least 1e-5, and elsewhere; the share of entries
+    more than 1e-6 apart."""
+    strict = loose = 0.0
+    apart = total = 0
+    for k in want:
+        floor = v_hat[k].sqrt() < 1e-5
+        diff = (got[k] - want[k]).abs()
+        strict = max(strict, float(diff[~floor].max()) if (~floor).any()
+                     else 0.0)
+        loose = max(loose, float(diff[floor].max()) if floor.any() else 0.0)
+        apart += int((diff > 1e-6).sum())
+        total += diff.numel()
+    return strict, loose, apart / total
+
+
+def check_classifier_reference(torch, dev, size=128, b=8):
+    """A float32 ``CropClassifier`` on the card against the same weights on
+    the CPU, TF32 off: logits within 1e-4; one AdamW step (lr 1e-3, weight
+    decay 1e-4, as ``train_classifier``'s first): loss within 1e-5
+    relative, gradients within 2e-3 of each tensor's largest, parameters
+    within 1e-6 where Adam's denominator ``sqrt(v_hat)`` is at least 1e-5
+    and within twice the learning rate elsewhere (a first AdamW update
+    moves an entry by at most the learning rate, weight decay aside: Adam's
+    eps 1e-8 turns float32 rounding of a gradient near 0 into any update
+    up to that).  A seed whose ReLU inputs flip
+    sign between the devices is passed over (a flip sends a gradient down
+    another path); the flips are counted."""
+    import torch.nn.functional as F
+    from podtpu_torch.models.classifier import CropClassifier, init_classifier
+    from podtpu_torch.train.classify import WEIGHT_DECAY
+    from podtpu_torch.train.optim import apply_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = 1e-3
+    flips = []
+    try:
+        for seed in range(SEED, SEED + 5):
+            cpu = CropClassifier(len(CLASSIFIER_CLASSES),
+                                 dtype=torch.float32)
+            init_classifier(cpu, torch.Generator().manual_seed(seed))
+            cpu = cpu.to(memory_format=torch.channels_last)
+            gpu = copy.deepcopy(cpu).to(dev)
+            rng = np.random.default_rng(seed)
+            x = torch.from_numpy(rng.uniform(0, 1, (b, size, size, 3))
+                                 .astype(np.float32))
+            y = torch.from_numpy(rng.integers(0, len(CLASSIFIER_CLASSES), b))
+            out = {}
+            for name, net, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+                opt = torch.optim.AdamW(net.parameters(), lr=lr,
+                                        betas=(0.9, 0.999), eps=1e-8,
+                                        weight_decay=WEIGHT_DECAY)
+                signs = relu_signs(torch)
+                with signs:
+                    logits = net(x.to(d))
+                loss = -F.log_softmax(logits, -1).gather(
+                    1, y.to(d)[:, None])[:, 0].mean()
+                loss.backward()
+                grads = {k: p.grad.detach().cpu().clone()
+                         for k, p in net.named_parameters()}
+                apply_optimizer(opt, lr)
+                v_hat = {k: opt.state[p]["exp_avg_sq"].cpu() / (1 - 0.999)
+                         for k, p in net.named_parameters()}
+                out[name] = dict(
+                    logits=logits.detach().cpu(), loss=float(loss.detach()),
+                    grads=grads, signs=signs.signs, v_hat=v_hat,
+                    params={k: p.detach().cpu().clone()
+                            for k, p in net.named_parameters()})
+            flipped = sum(int((a != b_).sum()) for a, b_ in zip(
+                out["cpu"]["signs"], out["gpu"]["signs"]))
+            flips.append(flipped)
+            if flipped:
+                continue
+            want, got = out["cpu"], out["gpu"]
+            grad_err = max(
+                float((got["grads"][k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in want["grads"].items())
+            strict, loose, apart = adam_apart(torch, got["params"],
+                                              want["params"],
+                                              want["v_hat"], lr)
+            rec = {"phase": "classifier_reference", "seed": seed,
+                   "image_size": size, "batch_size": b,
+                   "relu_flips_by_seed": flips,
+                   "logit_max_abs_err": float(
+                       (got["logits"] - want["logits"]).abs().max()),
+                   "loss_rel_err": abs(got["loss"] - want["loss"])
+                   / abs(want["loss"]),
+                   "grad_max_err_over_largest": grad_err,
+                   "param_max_abs_err_adam_above_floor": strict,
+                   "param_max_abs_err_adam_below_floor": loose,
+                   "param_share_apart_over_1e-6": apart}
+            emit(rec)
+            if not (rec["logit_max_abs_err"] <= 1e-4
+                    and rec["loss_rel_err"] <= 1e-5 and grad_err <= 2e-3
+                    and strict <= 1e-6 and loose <= 2 * lr):
+                raise AssertionError("the classifier on the card disagrees "
+                                     "with the CPU reference")
+            return rec
+        raise AssertionError(f"ReLU inputs flip sign on every seed: {flips}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def classifier_phase(torch, card, dev, epochs=3, size=128, per_class=64):
+    """Phase 15c: ``train_classifier`` on a class-sorted tree of 4 x 64
+    PNG crops (image size 128, batch 32, ``epochs`` epochs: 205 training
+    crops, 7 steps an epoch, 51 held out), then ``classify_crops`` on the
+    tree; training images/s and each epoch's seconds (its steps, crop
+    loading included), held-out accuracy, classification images/s, peak
+    memory; then ``train-crop-classifier`` (one epoch) and
+    ``classify-crops`` through ``podtpu_torch.cli.main``.  No kernel of
+    ours runs.  Needs Pillow, which reads the crops."""
+    if importlib.util.find_spec("PIL") is None:
+        emit({"phase": "classifier", "ran": False,
+              "why": "Pillow, which load_crop reads crops with, does not "
+                     "import here; the CPU tests "
+                     "(tests/test_torch_classifier.py) run the classifier",
+              "card": card})
+        return {}
+    from podtpu_torch import cli
+    from podtpu_torch.train import classify
+    from podtpu_torch.train import train as driver
+
+    tmp = tempfile.mkdtemp(prefix="podtpu_classifier_")
+    crops = os.path.join(tmp, "crops")
+    crop_tree(crops, np.random.default_rng(SEED + 22), per_class)
+    n = per_class * len(CLASSIFIER_CLASSES)
+    epochs_rec = []
+    logger_cls = classify.MetricLogger
+
+    class Logger(logger_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            epochs_rec.append({"start": time.perf_counter(), "steps": 0})
+
+        def update(self, **kwargs):
+            super().update(**kwargs)
+            epochs_rec[-1]["steps"] += 1
+            epochs_rec[-1]["end"] = time.perf_counter()
+            epochs_rec[-1]["loss"] = self.meters["loss"].global_avg
+
+    classify.MetricLogger = Logger
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, launches, _, train_s = driven(
+            torch, driver, classify.train_classifier, crops,
+            os.path.join(tmp, "models"), "chip", batch_size=32,
+            image_size=size, max_epochs=epochs, device=dev)
+        classify.MetricLogger = logger_cls
+        labels, classify_launches, _, classify_s = driven(
+            torch, driver, classify.classify_crops, crops, model_dir,
+            batch_size=32, device=dev)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(model_dir, "classifier.json")) as fp:
+            meta = json.load(fp)
+        out_dir = os.path.join(tmp, "cli")
+        argv = ["train-crop-classifier", "-i", crops, "-o", out_dir, "-m",
+                "cli", "--max-epochs", "1", "--image-size", str(size)]
+        _, _, _, cli_train_s = driven(torch, driver, cli.main, argv,
+                                      device=dev)
+        out_json = os.path.join(tmp, "labels.json")
+        argv2 = ["classify-crops", "-i", crops, "--model-dir", out_dir,
+                 "--model", "cli", "-o", out_json]
+        _, _, _, cli_classify_s = driven(torch, driver, cli.main, argv2,
+                                         device=dev)
+        with open(out_json) as fp:
+            cli_labels = json.load(fp)
+    finally:
+        classify.MetricLogger = logger_cls
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = sum(e["steps"] for e in epochs_rec)
+    epoch_s = [e["end"] - e["start"] for e in epochs_rec]
+    truth = {p: os.path.basename(os.path.dirname(p)) for p in labels}
+    line = {"phase": "classifier", "model": "CropClassifier (ResNet-18-like,"
+            " GroupNorm(32), bf16)", "crops": n,
+            "classes": len(CLASSIFIER_CLASSES), "image_size": size,
+            "batch_size": 32, "epochs": len(epochs_rec), "steps": steps,
+            "epoch_s": epoch_s,
+            "epoch_losses": [e["loss"] for e in epochs_rec],
+            "train_images_per_s": steps * 32 / sum(epoch_s),
+            "train_images_per_s_after_first_epoch":
+                sum(e["steps"] for e in epochs_rec[1:]) * 32
+                / sum(epoch_s[1:]),
+            "train_call_s": train_s, "test_accuracy": meta["test_accuracy"],
+            "classify_s": classify_s, "classify_images_per_s": n / classify_s,
+            "classify_accuracy_on_the_tree": sum(
+                labels[p] == truth[p] for p in labels) / len(labels),
+            "cli_train_s": cli_train_s, "cli_classify_s": cli_classify_s,
+            "launches": {"train": launches, "classify": classify_launches},
+            "peak_memory_gib": peak, "card": card}
+    emit(line)
+    bad = []
+    if len(epochs_rec) != epochs or not all(
+            np.isfinite(e["loss"]) for e in epochs_rec):
+        bad.append("an epoch is missing or its loss is not finite")
+    if len(labels) != n or set(labels.values()) - set(CLASSIFIER_CLASSES):
+        bad.append("classify_crops labelled another set of crops or with "
+                   "an unknown label")
+    if len(cli_labels) != n or set(cli_labels.values()) - set(
+            CLASSIFIER_CLASSES):
+        bad.append("classify-crops labelled another set of crops")
+    if not 0 <= meta["test_accuracy"] <= 1 or meta["labels"] != list(
+            CLASSIFIER_CLASSES) or meta["image_size"] != size:
+        bad.append(f"classifier.json {meta}")
+    if any(launches.values()) or any(classify_launches.values()):
+        bad.append("a kernel of ours launched")
+    if bad:
+        raise AssertionError(f"classifier: {bad}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3271,15 +3811,22 @@ def main() -> int:
     try:
         infer, (infer_nms, infer_roi) = infer_phase(torch, card, "cuda",
                                                     model_dir)
+        # Phase 15a: tiled scan inference on the trained model.
+        tiled_launches, tiled_nms, tiled_roi = tiled_phases(
+            torch, card, "cuda", model_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tiled_out = {"launches": tiled_launches, "nms": tiled_nms,
+                 "roi": tiled_roi}
     cli, (cli_nms, cli_roi) = cli_phase(torch, card, "cuda", native_built)
     head_captured = {"k2": [], "k3": []}
     mask_train = train_slice(torch, card, "cuda", model="mask", timed=10)
     capture_step(mask_train.pop("replay"), ModelConfig().mask_pool_size,
                  head_captured, "mask_train")
     mask_eval = head_eval_slice(torch, card, "cuda", head_captured, "mask")
-    mask_driver = head_driver_phase(torch, card, "cuda", "mask")
+    mask_driver = head_driver_phase(
+        torch, card, "cuda", "mask", after=lambda d: tiled_head_phase(
+            torch, card, "cuda", d, "mask", tiled_out))
     kp_train = train_slice(torch, card, "cuda", model="keypoint", timed=10)
     kp_size = ModelConfig().keypoint_pool_size
     capture_step(kp_train.pop("replay"), kp_size, head_captured,
@@ -3311,15 +3858,22 @@ def main() -> int:
         one_stage[f"{model}_train"] = train_slice(
             torch, card, "cuda", model=model, timed=10)["launches"]
     for model in ("fcos", "retinanet_v2"):
-        paths, calls = one_stage_driver_phase(torch, card, "cuda", model)
+        after = None if model == "fcos" else (
+            lambda d: tiled_head_phase(torch, card, "cuda", d,
+                                       "retinanet_v2", tiled_out))
+        paths, calls = one_stage_driver_phase(torch, card, "cuda", model,
+                                              after=after)
         one_stage.update(paths)
         captured += calls
+    # Phase 15c: the crop classifier.
+    check_classifier_reference(torch, "cuda")
+    classifier_phase(torch, card, "cuda")
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
-                 ("cli_evaluate_model", cli_nms)]
+                 ("cli_evaluate_model", cli_nms)] + tiled_out["nms"]
     k1 = check_nms_main_path(torch, nms, captured)
-    check_roi_align_main_path(torch, roi_align, [
+    k2_tiled = check_roi_align_main_path(torch, roi_align, [
         ("evaluate_model", eval_roi), ("infer", infer_roi),
-        ("cli_evaluate_model", cli_roi)])
+        ("cli_evaluate_model", cli_roi)] + tiled_out["roi"])
     k2_14 = check_roi_align_main_path(torch, roi_align, head_captured["k2"])
     k3_14 = check_roi_align_bwd_main_path(torch, roi_align,
                                           head_captured["k3"])
@@ -3352,7 +3906,8 @@ def main() -> int:
                    "v2_train": v2_train["launches"].get(name, 0),
                    "mask_v2_train": mask_v2_train["launches"].get(name, 0),
                    **{k: v[name] for k, v in v2_driver.items()},
-                   **{k: v.get(name, 0) for k, v in one_stage.items()}}
+                   **{k: v.get(name, 0) for k, v in one_stage.items()},
+                   **{k: v[name] for k, v in tiled_out["launches"].items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 
@@ -3380,7 +3935,17 @@ def main() -> int:
                  "valid_per_segment": r["valid_per_segment"],
                  "kept_per_segment": r["kept_per_segment"]}
                  for (path, k), r in k1.items()
-                 if path.startswith(("retinanet", "fcos"))}),
+                 if path.startswith(("retinanet", "fcos"))},
+             # The tiled paths' first batch of 8 tiles, each call as the
+             # path made it.
+             tiled={f"{path}_call{k}": {
+                 "shape": r["shape"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "mismatches": r["mismatches"],
+                 "valid_per_segment": r["valid_per_segment"],
+                 "kept_per_segment": r["kept_per_segment"]}
+                 for (path, k), r in k1.items()
+                 if path.startswith("tiled")}),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",
@@ -3393,7 +3958,13 @@ def main() -> int:
                        **{p: at(r) for p, r in k2_7.items()}},
                  "14": {**at(k2_14["mask_train"]),
                         **{p: at(r) for p, r in k2_14.items()
-                           if p != "mask_train"}}}),
+                           if p != "mask_train"}}},
+             # The tiled paths' first batch of 8 tiles, at 7 (and 14 for
+             # the mask model).
+             tiled={r["case"]: at(r) | {"shape": r["shape"],
+                                        "plain_ms": r["plain_ms"],
+                                        "bound_by": r["bound_by"]}
+                    for r in k2_tiled if r["case"].startswith("tiled")}),
         dict(name="roi_align_bwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:226",

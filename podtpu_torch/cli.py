@@ -8,18 +8,19 @@ prompt is asked for with ``input()`` when it is absent.
 
 Run as ``python -m podtpu_torch.cli <command> ...``; in Python,
 ``main(argv, device=...)``.  ``device`` goes to ``train``,
-``evaluate_model``, ``infer``, ``infer_directory`` and ``serve``: None means
-the GPU, and those raise when there is none.  There is no ``--device`` flag,
+``evaluate_model``, ``infer``, ``infer_directory``, ``infer_tiled``,
+``train_classifier``, ``classify_crops`` and ``serve``: None means the GPU,
+and those raise when there is none.  There is no ``--device`` flag,
 so the flag surface stays the JAX package's.  The JAX package's group
 callback, which points XLA at a persistent compilation cache, has no
 counterpart.
 
 ``train-object-detector``, ``infer-object-detector``, ``crop-objects``,
-``infer-object-detector-directory`` and ``serve`` run.
-``infer-object-detector-tiled``, ``train-crop-classifier``,
-``classify-crops``, ``export-model`` and ``serve --exported`` parse their
-flags, then raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them; so do the options that ``train()`` does not train yet.
+``infer-object-detector-directory``, ``infer-object-detector-tiled``,
+``train-crop-classifier``, ``classify-crops`` and ``serve`` run.
+``export-model`` and ``serve --exported`` parse their flags, then raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them; so do
+the options that ``train()`` and ``infer_tiled`` do not run yet.
 """
 from __future__ import annotations
 
@@ -228,7 +229,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("--batch-size", type=int, default=2, help=_BATCH_HELP)
 
     c = _Command(sub, "infer-object-detector-tiled",
-                 "Sliding-window scan inference (ROADMAP.md item 16)")
+                 "Sliding-window scan inference with cross-tile NMS")
     c.opt("-i", "--input", dest="input_path", prompt="Image file to scan",
           help="Large scan image to tile")
     c.opt("--model-dir", default="/obj_det/models", help=_MODEL_DIR_HELP)
@@ -244,8 +245,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("-o", "--output", help="Write detections as JSON to this path")
 
     c = _Command(sub, "train-crop-classifier",
-                 "Train a classifier on class-sorted object crops "
-                 "(ROADMAP.md item 15)")
+                 "Train a classifier on class-sorted object crops")
     c.opt("-i", "--input-dir", prompt="Folder of class-sorted crops",
           help="Folder of class-sorted crops (crop-objects output)")
     c.opt("-o", "--output-dir", default="/obj_det/classifiers",
@@ -257,8 +257,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("--alrs-epochs", type=int, default=10)
 
     c = _Command(sub, "classify-crops",
-                 "Classify object crops with a trained crop classifier "
-                 "(ROADMAP.md item 15)")
+                 "Classify object crops with a trained crop classifier")
     c.opt("-i", "--input-dir", prompt="Folder of crops",
           help="Folder of crops to classify")
     c.opt("--model-dir", default="/obj_det/classifiers")
@@ -417,6 +416,55 @@ def infer_object_detector_directory(a, parser, device):
     crop.crop_objects(project, a.output_dir, relative_to=a.input_dir)
 
 
+def infer_object_detector_tiled(a, parser, device):
+    from podtpu_torch.infer.tiled import infer_tiled
+
+    model_path = os.path.join(a.model_dir, a.model)
+    labels = _read_labels(os.path.join(a.model_dir, a.model, "labels.txt"))
+    dets = infer_tiled(a.input_path, model_path, threshold=a.threshold,
+                       overlap=a.overlap, batch_size=a.batch_size,
+                       tile_size=a.tile_size,
+                       spatial_devices=a.spatial_devices, device=device)
+    rows = []
+    for d in dets:
+        row = {"box": d.box, "score": d.score,
+               "label": labels[d.label - 1]}
+        if d.polygon is not None:  # mask models: instance outline
+            row["polygon"] = [[float(x), float(y)] for x, y in d.polygon]
+        rows.append(row)
+    _write_json(rows, a.output)
+    print(f"{len(dets)} detections")
+
+
+def train_crop_classifier(a, parser, device):
+    from podtpu_torch.train.classify import train_classifier
+
+    train_classifier(a.input_dir, output_dir=a.output_dir, name=a.model,
+                     batch_size=a.batch_size, image_size=a.image_size,
+                     max_epochs=a.max_epochs, alrs_epochs=a.alrs_epochs,
+                     device=device)
+
+
+def classify_crops(a, parser, device):
+    from podtpu_torch.train.classify import classify_crops as classify_fn
+
+    result = classify_fn(a.input_dir, os.path.join(a.model_dir, a.model),
+                         batch_size=a.batch_size, device=device)
+    _write_json(result, a.output)
+
+
+def _write_json(value, output: Optional[str]) -> None:
+    """``value`` as indented JSON to the file ``output``, or to stdout."""
+    import json
+
+    text = json.dumps(value, indent=2)
+    if output:
+        with open(output, "w") as fp:
+            fp.write(text)
+    else:
+        print(text)
+
+
 def serve(a, parser, device):
     if a.exported:
         _not_ported("serve --exported", "item 17: export")
@@ -430,11 +478,11 @@ RUN = {"train-object-detector": train_object_detector,
        "infer-object-detector": infer_object_detector,
        "crop-objects": crop_objects,
        "infer-object-detector-directory": infer_object_detector_directory,
+       "infer-object-detector-tiled": infer_object_detector_tiled,
+       "train-crop-classifier": train_crop_classifier,
+       "classify-crops": classify_crops,
        "serve": serve}
-NOT_PORTED = {"infer-object-detector-tiled": "item 16: tiled inference",
-              "train-crop-classifier": "item 15: the crop classifier",
-              "classify-crops": "item 15: the crop classifier",
-              "export-model": "item 17: export"}
+NOT_PORTED = {"export-model": "item 17: export"}
 
 
 def subparsers(parser: argparse.ArgumentParser

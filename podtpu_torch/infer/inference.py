@@ -67,16 +67,25 @@ def load_inference_model(model_dir: str, device=None
     """
     dev = resolve_device(device)
     params, frozen, cfg, labels = load_model(model_dir)
+    forward, model = build_inference_model(params, frozen, cfg, dev)
+    return forward, model, cfg, labels
+
+
+def build_inference_model(params, frozen, cfg, device
+                          ) -> Tuple[Callable, torch.nn.Module]:
+    """``(forward, model)`` of :func:`load_inference_model` from a model
+    directory's flax trees and a model configuration (whose canvas may
+    differ from the saved one: the weights do not depend on it)."""
     model = make_detector(cfg)
     sd = state_dict_from_flax(params, frozen, cfg.roi_pool_size)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-    model = model.to(dev).to(memory_format=torch.channels_last).eval()
+    model = model.to(device).to(memory_format=torch.channels_last).eval()
 
     def forward(images) -> Detections:
         with torch.inference_mode():
-            return model(torch.as_tensor(images).to(dev))
+            return model(torch.as_tensor(images).to(device))
 
-    return forward, model, cfg, labels
+    return forward, model
 
 
 def split_eval_output(out) -> Tuple[

@@ -457,3 +457,78 @@ def load_pretrained(model, path: str, verbose: bool = True):
         print(f"[pretrained] {copied} tensors loaded, {skipped} skipped "
               f"from {path}")
     return model
+
+
+# -- the crop classifier ------------------------------------------------------
+
+def classifier_key_map(stage_sizes: Tuple[int, ...] = (2, 2, 2, 2)
+                       ) -> List[Tuple[str, str, str]]:
+    """``(port key, flax path, kind)`` for every tensor of the crop
+    classifier (``models/classifier.py``): the names are flax's in both, a
+    block projects (``proj``, ``gn_proj``) where its stage starts after the
+    first."""
+    def gn(name):
+        return [(f"{name}.weight", f"{name.replace('.', '/')}/scale",
+                 "vector"),
+                (f"{name}.bias", f"{name.replace('.', '/')}/bias", "vector")]
+
+    m = [("stem.weight", "stem/kernel", "conv")] + gn("gn_stem")
+    for s, blocks in enumerate(stage_sizes):
+        for b in range(blocks):
+            block = f"stage{s + 1}_{b}"
+            convs = ("conv1", "conv2") + (("proj",) if s and not b else ())
+            for conv in convs:
+                m.append((f"{block}.{conv}.weight", f"{block}/{conv}/kernel",
+                          "conv"))
+                norm = {"conv1": "gn1", "conv2": "gn2",
+                        "proj": "gn_proj"}[conv]
+                m += gn(f"{block}.{norm}")
+    m += [("head.weight", "head/kernel", "dense"),
+          ("head.bias", "head/bias", "vector")]
+    return m
+
+
+def _stage_sizes(names) -> Tuple[int, ...]:
+    """Blocks per stage from the ``stage{s}_{b}`` names among ``names``."""
+    blocks: Dict[int, int] = {}
+    for name in names:
+        hit = re.match(r"stage(\d+)_(\d+)", name)
+        if hit:
+            s, b = int(hit[1]), int(hit[2])
+            blocks[s] = max(blocks.get(s, 0), b + 1)
+    return tuple(blocks[s] for s in sorted(blocks))
+
+
+def classifier_state_dict_from_flax(params: Dict) -> Dict[str, np.ndarray]:
+    """The crop classifier's state dict (numpy arrays) from its flax
+    ``params`` tree; raises ``KeyError`` naming a tree entry that is
+    missing, or one that no tensor of the model reads."""
+    key_map = classifier_key_map(_stage_sizes(params))
+    sd = {}
+    for key, path, kind in key_map:
+        try:
+            value = _get(params, path)
+        except KeyError:
+            raise KeyError(f"params/{path} (for {key}) is not in the "
+                           "checkpoint") from None
+        sd[key] = _to_torch(kind, value, 0)
+    extra = set("/".join(k) for k in _flatten(params)) - {p for _, p, _ in
+                                                         key_map}
+    if extra:
+        raise KeyError(f"params/{sorted(extra)[0]} is not a tensor of the "
+                       "crop classifier")
+    return sd
+
+
+def classifier_flax_from_state_dict(state_dict: Dict) -> Dict:
+    """The crop classifier's flax ``params`` tree of numpy arrays from the
+    port's state dict (tensors or arrays): the inverse of
+    :func:`classifier_state_dict_from_flax`."""
+    tree: Dict = {}
+    stage_sizes = _stage_sizes(k.split(".")[0] for k in state_dict)
+    for key, path, kind in classifier_key_map(stage_sizes):
+        value = state_dict[key]
+        if hasattr(value, "detach"):
+            value = value.detach().cpu().numpy()
+        _set(tree, path, _to_flax(kind, np.asarray(value), 0))
+    return tree

@@ -328,10 +328,8 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
 # -- stubs and imports --------------------------------------------------------
 
 @pytest.mark.parametrize("argv, item", [
-    (["infer-object-detector-tiled", "-i", "scan.tif", "--model", "m"],
-     "item 16"),
-    (["train-crop-classifier", "-i", "crops"], "item 15"),
-    (["classify-crops", "-i", "crops", "--model", "m"], "item 15"),
+    (["infer-object-detector-tiled", "-i", "scan.tif", "--model-dir",
+      "{models}", "--model", "m", "--spatial-devices", "2"], "item 20"),
     (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
     (["serve", "--model", "m", "--exported"], "item 17"),
     (["train-object-detector", "-t", "5", "--family", "ssd"],
@@ -341,6 +339,7 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["train-object-detector", "-t", "5", "--num-devices", "2"], "item 18"),
 ])
 def test_unported_raise(cvat_env, tmp_path, argv, item):
+    argv = [a.format(models=cvat_env["models"]) for a in argv]
     if argv[0] == "train-object-detector":
         argv += [*server_args(cvat_env), "-o", str(tmp_path)]
     with pytest.raises(NotImplementedError, match=item):

@@ -174,7 +174,9 @@ class TestDeviceAndImports:
             " 'podtpu_torch.infer.crop', 'podtpu_torch.cli',"
             " 'podtpu_torch.core.native', 'podtpu_torch.data.coco_import',"
             " 'podtpu_torch.data.cvat.client', 'podtpu_torch.data.cvat.xml',"
-            " 'podtpu_torch.models.retinanet', 'podtpu_torch.models.fcos']\n"
+            " 'podtpu_torch.models.retinanet', 'podtpu_torch.models.fcos',"
+            " 'podtpu_torch.infer.tiled', 'podtpu_torch.models.classifier',"
+            " 'podtpu_torch.train.classify']\n"
             "assert all(m in sys.modules for m in train), train\n"
             "print(len([m for m in sys.modules"
             " if m.startswith('podtpu_torch.')]), bad)\n")
