@@ -173,6 +173,53 @@ Phases, one JSON line each:
    and ``classify-crops`` through the CLI; images/s, each epoch's
    seconds, held-out accuracy, peak memory; no kernel of ours launched.
 
+16. device-resident data and K steps per dispatch: ``train()`` at the
+   ``Config()`` defaults holds its dataset on the card
+   (``podtpu_torch.data.device_cache``), gathers each batch in the step
+   and runs full groups of 8 steps as one CUDA graph replay, so the
+   drivers above (``driver``, the head, v2 and one-stage drivers and the
+   CLI's ``train-object-detector``) run that path, except ``driver``'s
+   resumed third epoch, which streams through the ``Loader``
+   (``device_data_cache=False``; the line's ``loaders`` says which loader
+   each epoch took); each driver line also
+   carries its runner's captures and replays and its epoch losses beside
+   PR 11's streamed run's, where it had one.  ``adam_capturable_reference``
+   and ``adamw_capturable_reference``: Adam and AdamW made capturable on
+   the card (step counters there, a tensor rate), three updates of a
+   detector's parameter sizes against the CPU's host-side update on the
+   same gradients (parameters and moments within 1e-6 of each tensor's
+   largest; each parameter's change within 1e-5 of its largest plus its
+   float32 rounding; the card's float32 1 - 0.999^t moves the update by
+   about 6.4e-6).  ``cached_reference``
+   (Faster R-CNN with SGD, again with AdamW, and RetinaNet): a 128^2
+   float32 model, TF32 off, cuDNN deterministic, K = 3: the eager group,
+   the capture and its replay, then one replay held against 3 eager
+   cached steps from the same state with the same draws (losses,
+   parameters, optimiser state within 1e-6 of each tensor's largest
+   value; bitwise expected).  ``cached_train``: Faster R-CNN at the
+   defaults from a device cache of 32 seeded 1024^2 canvases
+   (``synthetic_batch``'s boxes; MiB against ``dataset_device_bytes``):
+   the eager group, the capture (seconds), one group held against 8
+   eager steps as above, 5 timed replays (images/s, step ms = replay ms
+   / 8, peak memory with the graph's pool), our kernels' launches per
+   replay from the counts and from ``torch.profiler`` over one more
+   replay (equal), the device's idle share there, and the streamed
+   ``train`` phase's images/s beside it.  ``cached_<family>_train``
+   (``mask``, ``keypoint``, ``v2``, ``mask_v2``, ``retinanet``,
+   ``retinanet_v2``, ``fcos``): the same with 3 timed replays, after each
+   family's streamed train phase.  ``windowed_driver``: ``train()`` for
+   one epoch on the driver's 24 images with ``PODTPU_DEVICE_CACHE_BYTES``
+   set so that a window holds 8 samples, its batches, epoch loss and
+   parameters held against the ``driver`` phase's first epoch (the full
+   cache, the same start).
+
+Launches under graph replay: a capture calls the kernels' wrappers, which
+count, but launches nothing; a replay launches without calling them.  The
+runner (``CachedMultiStep``) holds apart what its capture counted and adds
+it to ``podtpu_torch.ops._build.launches`` on every replay, so the counts
+keep meaning kernels the card ran, and ``check_driver_launches`` holds as
+before; ``cached_train`` checks them against ``torch.profiler``.
+
 Then K1 on the inputs the main paths gave it (one serving batch's RPN and
 postprocess calls, one training step's call, one batch of
 ``evaluate_model`` and of ``infer``, and one ``evaluate_model`` batch of
@@ -1191,11 +1238,13 @@ def device_profile(torch, run, reps=3, unit="forward"):
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     ours = {}       # the port's own kernels, by function name
-    for name, ms in by_name.items():
+    calls = {}      # and the times the device ran each
+    for start, stop, name in spans:
         found = re.search(r"\b(roi_\w+|nms_\w+)", name)
         if found:
-            ours[found.group(1)] = (ours.get(found.group(1), 0.0)
-                                    + ms / 1e3 / reps)
+            key = found.group(1)
+            ours[key] = ours.get(key, 0.0) + (stop - start) / 1e3 / reps
+            calls[key] = calls.get(key, 0) + 1
     ops = sorted(((e.key, e.self_device_time_total, e.count)
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0), key=lambda t: -t[1])[:12]
@@ -1204,6 +1253,8 @@ def device_profile(torch, run, reps=3, unit="forward"):
             "device_idle_share": 1.0 - busy / wall_us if spans else None,
             "device_activities": len(spans),
             f"port_kernels_ms_per_{unit}": ours,
+            f"port_kernel_runs_per_{unit}": {
+                k: v / reps for k, v in calls.items()},
             f"top_kernels_ms_per_{unit}": [
                 [name[:160], ms / 1e3 / reps] for name, ms in top],
             f"top_ops_self_device_ms_per_{unit}": [
@@ -1586,6 +1637,19 @@ def train_breakdown(torch, model, optimizer, cfg, batch, gen, reps=5):
     return {p: statistics.median(v) for p, v in times.items()}
 
 
+KERNELS = ("nms", "roi_align_fwd", "roi_align_bwd")
+
+
+def per_step_launches(model):
+    """Our kernels' launches in one training step of ``model``: K1 once,
+    K2 and K3 once (twice with a mask or keypoint head: the box head at
+    7, the other at 14); none in a one-stage step."""
+    if model in ONE_STAGE:
+        return dict.fromkeys(KERNELS, 0)
+    extra = head_of(model) is not None
+    return {"nms": 1, "roi_align_fwd": 1 + extra, "roi_align_bwd": 1 + extra}
+
+
 def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
                 extra_steps=3):
     """Training at the ``TrainConfig`` defaults (batch 2, SGD, miso; the v2
@@ -1645,10 +1709,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
         m = step(batches[i % len(batches)], lr, generator=gen)
         assert all(np.isfinite(float(v)) for v in m.values()), m
     warm_s = time.perf_counter() - t0
-    per_step = {"nms": 1, "roi_align_fwd": 1 + (head is not None),
-                "roi_align_bwd": 1 + (head is not None)}
-    if model in ONE_STAGE:   # no RoI stage, no proposals: no kernel
-        per_step = dict.fromkeys(per_step, 0)
+    per_step = per_step_launches(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1805,29 +1866,76 @@ def in_memory_images(rng, n, size, with_boxes=True):
 @contextlib.contextmanager
 def driver_hooks(torch, driver, rec):
     """Record, without extra device syncs, what one ``train()`` call does:
-    each epoch's start (the train loader's ``set_epoch``), its steps and
-    their loss tensors, its eval (stats, batches, start and end), its
-    scheduler loss and its checkpoint's end."""
-    saved = {k: getattr(driver, k) for k in ("Loader", "make_train_step",
-                                             "evaluate", "make_scheduler")}
+    each epoch's start and loader (the train loader's ``set_epoch``,
+    whichever loader the run takes), its steps and their loss tensors, its eval (stats,
+    batches, start and end), its scheduler loss and its checkpoint's end.
+    Steps are counted where ``train()`` dispatches them: a streamed step, a
+    cached single step, or a group of K (a graph replay on the card, which
+    calls no Python step).  Where ``rec`` holds a ``batches`` list, each
+    cached step's dataset indices and image weights go there (one read of
+    the arrays' ``index`` field per arrays); where it holds ``states``,
+    the model's state at each checkpoint.  ``rec["multi"]`` is the run's
+    K-step runner, if it made one."""
+    names = ("Loader", "DeviceLoader", "WindowedStreamLoader",
+             "make_train_step", "make_cached_train_step",
+             "make_cached_multi_step", "evaluate", "make_scheduler")
+    saved = {k: getattr(driver, k) for k in names}
     save_ckpt = driver.ckpt.save_train_checkpoint
+    inside = [0]   # > 0 while a cached step or group runs the step
+    index_of = {}  # id(arrays) -> their index field on the host
 
-    class Loader(saved["Loader"]):
-        def set_epoch(self, epoch):
-            rec["epochs"].append({"epoch": epoch,
-                                  "start": time.perf_counter(), "steps": 0})
-            super().set_epoch(epoch)
+    def recorded(cls):
+        class Recorded(cls):
+            def set_epoch(self, epoch):
+                rec["epochs"].append({"epoch": epoch,
+                                      "start": time.perf_counter(),
+                                      "steps": 0, "loader": cls.__name__})
+                super().set_epoch(epoch)
+
+        return Recorded
+
+    def count(metrics, arrays=None, idx=None, weights=None):
+        losses = metrics["loss"].reshape(-1)
+        rec["epochs"][-1]["steps"] += losses.numel()
+        rec["step_losses"].extend(losses.unbind())
+        if arrays is not None and rec.get("batches") is not None:
+            key = id(arrays)
+            if key not in index_of:
+                index_of.clear()
+                index_of[key] = arrays["index"].cpu().numpy()
+            ids = index_of[key][np.asarray(idx).reshape(losses.numel(), -1)]
+            rec["batches"].extend(zip(ids, np.asarray(weights).reshape(
+                losses.numel(), -1)))
 
     def make_train_step(*args, **kwargs):
         step = saved["make_train_step"](*args, **kwargs)
 
         def counted(batch, lr, **kw):
             metrics = step(batch, lr, **kw)
-            rec["epochs"][-1]["steps"] += 1
-            rec["step_losses"].append(metrics["loss"])
+            if not inside[0]:  # a streamed step
+                count(metrics)
             return metrics
 
         return counted
+
+    def dispatched(make):
+        def wrapped(*args, **kwargs):
+            run = make(*args, **kwargs)
+            if hasattr(run, "captures"):
+                rec["multi"] = run
+
+            def counted(arrays, idx, image_weight, *rest, **kw):
+                inside[0] += 1
+                try:
+                    metrics = run(arrays, idx, image_weight, *rest, **kw)
+                finally:
+                    inside[0] -= 1
+                count(metrics, arrays, idx, image_weight)
+                return metrics
+
+            return counted
+
+        return wrapped
 
     def evaluate(forward, loader, *args, **kwargs):
         t0 = time.perf_counter()
@@ -1853,9 +1961,20 @@ def driver_hooks(torch, driver, rec):
 
     def save_train_checkpoint(*args, **kwargs):
         save_ckpt(*args, **kwargs)
+        if rec.get("states") is not None:
+            rec["states"].append({k: v.detach().cpu().clone() for k, v
+                                  in args[1].state_dict().items()})
         rec["epochs"][-1]["end"] = time.perf_counter()
 
-    for k, v in (("Loader", Loader), ("make_train_step", make_train_step),
+    for k, v in (("Loader", recorded(saved["Loader"])),
+                 ("DeviceLoader", recorded(saved["DeviceLoader"])),
+                 ("WindowedStreamLoader",
+                  recorded(saved["WindowedStreamLoader"])),
+                 ("make_train_step", make_train_step),
+                 ("make_cached_train_step",
+                  dispatched(saved["make_cached_train_step"])),
+                 ("make_cached_multi_step",
+                  dispatched(saved["make_cached_multi_step"])),
                  ("evaluate", evaluate), ("make_scheduler", make_scheduler)):
         setattr(driver, k, v)
     driver.ckpt.save_train_checkpoint = save_train_checkpoint
@@ -1867,13 +1986,14 @@ def driver_hooks(torch, driver, rec):
         driver.ckpt.save_train_checkpoint = save_ckpt
 
 
-def driven(torch, driver, fn, *args, **kwargs):
+def driven(torch, driver, fn, *args, keep=(), **kwargs):
     """``fn(*args, **kwargs)`` with the launch counts set to 0 just before
     and read just after, its printout sent to stderr, and the driver's
-    hooks recording; returns (result, launches, record, seconds)."""
+    hooks recording (``keep``: "batches", "states", as ``driver_hooks``
+    says); returns (result, launches, record, seconds)."""
     from podtpu_torch.ops import _build
 
-    rec = {"epochs": [], "step_losses": []}
+    rec = {"epochs": [], "step_losses": [], **{k: [] for k in keep}}
     with driver_hooks(torch, driver, rec), \
             contextlib.redirect_stdout(sys.stderr):
         torch.cuda.synchronize()
@@ -1896,6 +2016,32 @@ def check_driver_launches(name, launches, steps, eval_batches):
             launches[k] < v for k, v in want.items()):
         raise AssertionError(f"{name}: launches {launches}, expected K3 = "
                              f"{steps} and K1, K2 >= {steps + eval_batches}")
+
+
+# The drivers' epoch losses in PR 11's run (streamed batches, one step at a
+# time, torch's SGD), the same on every run of that PR.
+PR11_EPOCH_LOSSES = {
+    "driver": [1.633754348754883, 0.9547824859619141, 0.9167163848876954],
+    "fcos_driver": [3.3219535827636717, 2.284153366088867],
+    "retinanet_v2_driver": [1.9449041366577149, 1.2939629554748535]}
+
+
+def dispatch_record(phase, losses, *recs):
+    """A driver phase's epoch losses (beside PR 11's, where it had them)
+    and what each ``train()`` call's K-step runner did."""
+    out = {"epoch_losses": losses, "graph": [
+        None if r.get("multi") is None else {
+            "captures": r["multi"].captures, "replays": r["multi"].replays,
+            "capture_s": r["multi"].capture_s,
+            "launches_per_replay": r["multi"].launches_per_replay}
+        for r in recs]}
+    if phase in PR11_EPOCH_LOSSES:
+        want = PR11_EPOCH_LOSSES[phase]
+        out.update(epoch_losses_pr11=want,
+                   epoch_losses_equal_to_pr11=losses == want,
+                   epoch_loss_gaps_to_pr11=[abs(a - b) / abs(b)
+                                            for a, b in zip(losses, want)])
+    return out
 
 
 def epoch_lines(rec, batch_size):
@@ -1936,11 +2082,14 @@ def check_loader_place(torch, project, dev, size):
 
 def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
                  size=(1024, 1024), n_images=24):
-    """``train()`` on a seeded in-memory project (2 epochs, then resumed
-    for a third), ``evaluate_model`` on its 4 test images, and checks.
+    """``train()`` on a seeded in-memory project (2 epochs on the device
+    cache with graphs, then resumed for a third streamed through the
+    ``Loader``, ``device_data_cache=False``), ``evaluate_model`` on its 4
+    test images, and checks.
     Returns the model directory's parent (a temporary directory), the
     model directory, the launches by path and the K1 and K2 inputs of one
     ``evaluate_model`` batch."""
+    from podtpu_torch.core.config import Config
     from podtpu_torch.data import Project, imageio
     from podtpu_torch.data.dataset import train_test_split
     from podtpu_torch.infer.inference import load_inference_model
@@ -1964,10 +2113,16 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
     try:
         torch.cuda.reset_peak_memory_stats()
         model_dir, first, rec1, s1 = driven(torch, driver, driver.train,
-                                            project, max_epochs=2, **kw)
+                                            project, max_epochs=2,
+                                            keep=("batches", "states"), **kw)
         after_first = load_train_checkpoint(model_dir)["epoch"]
+        # The resumed epoch streams from the host: the Loader's path.
+        base = config or Config()
+        streamed = dataclasses.replace(base, data=dataclasses.replace(
+            base.data, device_data_cache=False))
         _, resumed, rec2, s2 = driven(torch, driver, driver.train, project,
-                                      max_epochs=3, resume=True, **kw)
+                                      max_epochs=3, resume=True,
+                                      **dict(kw, config=streamed))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         _, test_idx = train_test_split(len(metas), 0.2, 1)
         test_project = Project()
@@ -2020,12 +2175,14 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
            "train_call_s": [s1, s2], "evaluate_model_s": s3,
            "resumed_from_epoch": after_first,
            "resumed_first_epoch": rec2["epochs"][0]["epoch"],
+           "loaders": [e["loader"] for e in rec1["epochs"] + rec2["epochs"]],
            "train_images_per_s_steady": train_images / train_s,
            "step_loop_images_per_s": step_loop_images_per_s,
            "driver_over_step_loop": step_loop_images_per_s
            / (train_images / train_s),
            "eval_images_per_s": [e["eval_images_per_s"] for e in epochs],
-           "epoch_losses": [e["loss"] for e in epochs],
+           **dispatch_record("driver", [e["loss"] for e in epochs], rec1,
+                             rec2),
            "stats": last["stats"], "evaluate_model_stats": stats,
            "evaluate_model_max_gap": stats_gap, "labels": labels,
            "artifacts": artifacts, "loaded_on": loaded_on,
@@ -2040,6 +2197,10 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
         bad.append("a logged loss is not finite")
     if after_first != 1 or rec["resumed_first_epoch"] != 2:
         bad.append("the resumed run did not start at epoch 2")
+    if rec["loaders"] != ["DeviceLoader", "DeviceLoader", "Loader"] \
+            or rec1.get("multi") is None or rec2.get("multi") is not None:
+        bad.append(f"loaders {rec['loaders']}: expected two cached epochs "
+                   f"with a K-step runner, then one through the Loader")
     if not all(artifacts.values()) or loaded_on != torch.device(dev).type \
             or sorted(labels) != sorted(DRIVER_LABELS):
         bad.append(f"artifacts {artifacts}, loaded on {loaded_on}")
@@ -2064,10 +2225,15 @@ def driver_phase(torch, card, dev, step_loop_images_per_s, config=None,
                           -(-len(test_idx) // 2))
     if bad:
         raise AssertionError(f"driver: {bad}")
+    steps0 = rec1["epochs"][0]["steps"]
+    first_epoch = {"batches": rec1["batches"][:steps0],
+                   "loss": rec1["epochs"][0]["loss"],
+                   "state": rec1["states"][0],
+                   "train_images_per_s": epochs[0]["train_images_per_s"]}
     return tmp, model_dir, {"driver": {k: first[k] + resumed[k]
                                        for k in first},
-                            "evaluate_model": evaluated}, (nms_calls,
-                                                           roi_calls)
+                            "evaluate_model": evaluated}, (
+        nms_calls, roi_calls), first_epoch
 
 
 def kept_boxes(result, metas):
@@ -2946,7 +3112,8 @@ def head_driver_phase(torch, card, dev, model="mask", config=None,
                           "rasterizes polygons, does not import)"}[kind],
             "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
             "train_call_s": seconds,
-            "epoch_losses": [e["loss"] for e in rec["epochs"]],
+            **dispatch_record(f"{model}_driver",
+                              [e["loss"] for e in rec["epochs"]], rec),
             f"eval_{'keypoints' if kps else 'segm'}_stats": [
                 e["keypoints_stats" if kps else "segm_stats"]
                 for e in rec["epochs"]],
@@ -3107,7 +3274,8 @@ def v2_driver_phase(torch, card, dev, config=None, size=(1024, 1024),
           "aug_policy": config.data.aug_policy, "stored_config": v2_fields,
           "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
           "train_call_s": seconds,
-          "epoch_losses": [e["loss"] for e in rec["epochs"]],
+          **dispatch_record("v2_driver",
+                            [e["loss"] for e in rec["epochs"]], rec),
           "evaluate_model_s": eval_s, "evaluate_model_stats": stats,
           "best_threshold": threshold, "infer_s": infer_s,
           "infer_kept_boxes": kept, "served_detections": served_dets,
@@ -3220,7 +3388,8 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
           "aug_policy": config.data.aug_policy, "stored_config": fields,
           "batch_size": 2, "epochs": epoch_lines(rec, 2), "steps": steps,
           "train_call_s": seconds,
-          "epoch_losses": [e["loss"] for e in rec["epochs"]],
+          **dispatch_record(f"{model}_driver",
+                            [e["loss"] for e in rec["epochs"]], rec),
           "evaluate_model_s": eval_s, "evaluate_model_stats": stats,
           "best_threshold": threshold, "infer_s": infer_s,
           "infer_kept_boxes": kept, "served_detections": served_dets,
@@ -3760,6 +3929,537 @@ def classifier_phase(torch, card, dev, epochs=3, size=128, per_class=64):
     return line
 
 
+# -- phase 16: device-resident data, K steps per dispatch as CUDA graphs -----
+
+CACHED_N = 32      # images in the cached_train cells' device cache
+# A graph replay against the same steps run eagerly from the same state:
+# the largest difference relative to each tensor's largest value.  The
+# replay runs the eager steps' own kernels on the same inputs, so the bits
+# are expected to agree.
+HELD_LIMIT = 1e-6
+# The profiler's name of the one kernel each wrapper call runs once.
+KERNEL_FUNCTIONS = {"nms": "nms_scan_kernel",
+                    "roi_align_fwd": "roi_align_fwd_kernel",
+                    "roi_align_bwd": "roi_align_bwd_kernel"}
+
+
+class SyntheticSet:
+    """``n`` seeded canvases with ``synthetic_batch``'s gt boxes and the
+    targets of ``model``'s extra head (an ellipse mask a gt, or 17
+    keypoints on one class), as a dataset that ``DeviceDataCache`` reads."""
+
+    def __init__(self, model, mcfg, n, seed):
+        rng = np.random.default_rng(seed)
+        size = mcfg.image_size
+        batch = model_batch(model, rng, n, size, mcfg.max_gt_boxes,
+                            n_gt=(1, min(30, mcfg.max_gt_boxes)),
+                            side=(16, min(256, min(size) // 2)))
+        if head_of(model) == "keypoint":
+            batch["labels"] = batch["valid"].astype(np.int32)
+        self.batch = batch
+        self.image_size = tuple(mcfg.image_size)
+        self.max_gt = mcfg.max_gt_boxes
+        self.with_masks = "masks" in batch
+        self.mask_stride = mcfg.mask_gt_stride
+        self.with_keypoints = "keypoints" in batch
+        self.num_keypoints = mcfg.num_keypoints
+
+    def __len__(self):
+        return len(self.batch["image"])
+
+    def load_batch(self, indices):
+        from podtpu_torch.data.dataset import Sample
+
+        b = self.batch
+        return [Sample(image=b["image"][i], boxes=b["boxes"][i],
+                       labels=b["labels"][i], valid=b["valid"][i],
+                       scale=1.0, original_size=self.image_size, index=i,
+                       masks=b["masks"][i] if self.with_masks else None,
+                       keypoints=b["keypoints"][i] if self.with_keypoints
+                       else None) for i in indices]
+
+
+def snapshot(torch, net, optimizer):
+    """Copies of the model's state and the optimiser's (for the held
+    checks; a training run never takes one)."""
+    return ({k: v.detach().clone() for k, v in net.state_dict().items()},
+            [{k: v.clone() for k, v in optimizer.state[p].items()
+              if torch.is_tensor(v)}
+             for g in optimizer.param_groups for p in g["params"]])
+
+
+def restore(torch, net, optimizer, snap):
+    """``snap`` written back into the same tensors (a captured graph keeps
+    reading them)."""
+    sd, states = snap
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    with torch.no_grad():
+        for k, v in net.state_dict().items():
+            v.copy_(sd[k])
+        for p, st in zip(params, states):
+            for k, v in st.items():
+                optimizer.state[p][k].copy_(v)
+
+
+def relative_gap(torch, got, want) -> float:
+    """max |got - want| over max |want| (over 1 where ``want`` is 0)."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    gap = float((got - want).abs().max()) if want.numel() else 0.0
+    return gap / scale if scale > 0 else gap
+
+
+def state_gaps(torch, got, want):
+    """The largest relative gap over the parameters (and buffers) and over
+    the optimiser's state tensors of two snapshots."""
+    (gs, go), (ws, wo) = got, want
+    params = max(relative_gap(torch, gs[k], ws[k]) for k in ws)
+    moments = max((relative_gap(torch, g[k], w[k])
+                   for g, w in zip(go, wo) for k in w), default=0.0)
+    return params, moments
+
+
+def held_group(torch, net, optimizer, multi, single, arrays, inputs):
+    """One call of the K-step runner ``multi`` (a replay) against K eager
+    calls of the cached single step ``single`` from the same state, with
+    the same indices, weights, learning rates and draws: the relative gaps
+    of the losses, parameters and optimiser state.  The model is left in
+    the eager steps' state."""
+    idx, w, lrs, draws = inputs
+    start = snapshot(torch, net, optimizer)
+    replays = multi.replays
+    got = multi(arrays, idx, w, lrs, draws)["loss"]
+    if multi.replays != replays + 1:
+        raise AssertionError("the held group was not a graph replay")
+    after_graph = snapshot(torch, net, optimizer)
+    restore(torch, net, optimizer, start)
+    eager = torch.stack([single(arrays, idx[j], w[j], float(lrs[j]),
+                                draws=draws[j])["loss"]
+                         for j in range(len(draws))])
+    params, moments = state_gaps(torch, after_graph,
+                                 snapshot(torch, net, optimizer))
+    out = {"loss": relative_gap(torch, got, eager), "parameters": params,
+           "optimizer_state": moments}
+    out["bitwise"] = not any(out.values())
+    out["within_limit"] = max(out["loss"], params, moments) <= HELD_LIMIT
+    out["limit"] = HELD_LIMIT
+    return out
+
+
+def group_inputs(torch, cfg, gen, lrs):
+    """``make(group) -> (idx [K, B], weights [K, B], lrs [K], draws)``:
+    each step's draws from ``gen`` in step order, as ``train()`` makes
+    them."""
+    from podtpu_torch.train.step import draw_train
+
+    shape = {"boxes": torch.empty((cfg.train.batch_size,
+                                   cfg.model.max_gt_boxes, 4),
+                                  device="meta")}
+
+    def make(group):
+        return (np.stack([i for i, _ in group]),
+                np.stack([v.astype(np.float32) for _, v in group]),
+                np.asarray(lrs, np.float32),
+                [draw_train(gen, cfg, shape) for _ in group])
+
+    return make
+
+
+def endless_groups(loader, k):
+    """Full groups of ``k`` of ``loader``'s raw batches, epoch after
+    epoch."""
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        items = list(loader)
+        for g in range(len(items) // k):
+            yield items[g * k:(g + 1) * k]
+        epoch += 1
+
+
+def cached_setup(torch, dev, model, cfg, n, seed):
+    """The model of ``cfg`` (seeded), its optimiser and step, the K-step
+    runner and the cached single step, and a device cache of ``n``
+    synthetic images with its raw loader."""
+    from podtpu_torch.data.device_cache import (DeviceDataCache,
+                                                DeviceLoader,
+                                                make_cached_multi_step,
+                                                make_cached_train_step)
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.train.optim import make_optimizer
+    from podtpu_torch.train.step import make_train_step
+
+    net = make_detector(cfg.model)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
+    net = net.to(memory_format=torch.channels_last)
+    optimizer = make_optimizer(cfg.train, net)
+    step = make_train_step(net, optimizer, cfg, device=dev)
+    t0 = time.perf_counter()
+    cache = DeviceDataCache(SyntheticSet(model, cfg.model, n, seed),
+                            device=dev)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    gather = cfg.train.cache_gather
+    return dict(net=net, optimizer=optimizer, cache=cache, cache_s=cache_s,
+                multi=make_cached_multi_step(step, cfg.train.
+                                             steps_per_dispatch, gather),
+                single=make_cached_train_step(step, gather),
+                loader=DeviceLoader(cache, cfg.train.batch_size,
+                                    shuffle=True, seed=SEED, raw=True))
+
+
+def release(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def cached_reference(torch, card, dev, model="faster", optimiser="sgd"):
+    """A small float32 model (128^2, as ``check_train_reference``) on the
+    card, TF32 off and cuDNN deterministic: two groups of 3 (the eager
+    warm-up, then the capture and its replay), then one more group as a
+    replay against 3 eager cached steps from the same state with the same
+    draws.  Losses, parameters and the optimiser's state must agree within
+    ``HELD_LIMIT`` of each tensor's largest value (bitwise is expected)."""
+    from podtpu_torch.core.config import Config, DataConfig, TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mcfg = model_config(model, image_size=(128, 128),
+                            rpn_pre_nms_topk_train=128,
+                            rpn_post_nms_topk_train=128,
+                            box_batch_per_image=32, max_gt_boxes=8,
+                            compute_dtype="float32", num_classes=4)
+        if head_of(model) == "keypoint":
+            mcfg = dataclasses.replace(mcfg, num_classes=2)
+        cfg = Config(model=mcfg, data=DataConfig(
+            aug_policy=MODEL_POLICY.get(model, "miso")),
+            train=TrainConfig(steps_per_dispatch=3, optimiser=optimiser))
+        s = cached_setup(torch, dev, model, cfg, 12, SEED + 20)
+        lr = cfg.train.adam_lr if optimiser != "sgd" else cfg.train.lr
+        make = group_inputs(torch, cfg, torch.Generator(
+            device=dev).manual_seed(SEED), [lr * 0.5, lr, lr * 0.75])
+        groups = endless_groups(s["loader"], 3)
+        for _ in range(2):  # the eager warm-up, then the capture
+            s["multi"](s["cache"].arrays, *make(next(groups)))
+        held = held_group(torch, s["net"], s["optimizer"], s["multi"],
+                          s["single"], s["cache"].arrays,
+                          make(next(groups)))
+        rec = {"phase": phase_name(model, "cached_reference")
+               + ("" if optimiser == "sgd" else f"_{optimiser}"),
+               "model": model_title(model), "image_size": [128, 128],
+               "compute_dtype": "float32", "optimiser": optimiser,
+               "steps_per_dispatch": 3, "captures": s["multi"].captures,
+               "replays": s["multi"].replays,
+               "launches_per_replay": s["multi"].launches_per_replay,
+               "held": held, "card": card}
+        emit(rec)
+        if s["multi"].captures != 1 or not held["within_limit"]:
+            raise AssertionError(f"{rec['phase']}: {held}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        release(torch)
+    return rec
+
+
+# Capturable Adam against the CPU's: the card's update reads 1 - beta2^t
+# in float32, where 0.999 is 0.99900001287, 1.29e-5 of 1 - beta2 away; the
+# square root halves it, so every update moves by about 6.4e-6 of itself.
+# A parameter's change is also read through its float32 rounding, one unit
+# in the last place of its largest value a step, which is added to this.
+ADAM_UPDATE_LIMIT = 1e-5
+
+
+def adam_capturable_reference(torch, card, dev, steps=3):
+    """Adam and AdamW as the cached path runs them on the card (made
+    capturable by ``make_train_step``: step counters on the device, the
+    rate a 0-d tensor) against the same optimisers on the CPU, which read
+    the rate and the bias corrections on the host, the update that
+    ``tests/test_torch_cached_step.py`` holds against optax.  Parameters
+    of a detector's sizes (a 3x3 conv, an FC layer, biases, a GroupNorm in
+    the norm group; one gradient 1e-6 small, near Adam's eps) take the same
+    gradients for ``steps`` updates at ``steps`` learning rates.  Each
+    parameter within ``HELD_LIMIT`` of its largest value, each parameter's
+    total change within ``ADAM_UPDATE_LIMIT`` of its largest plus the
+    parameter's rounding (``steps`` float32 epsilons of its largest value),
+    the moments within ``HELD_LIMIT`` of theirs."""
+    from podtpu_torch.core.config import ModelConfig, TrainConfig
+    from podtpu_torch.train.optim import (apply_optimizer, make_capturable,
+                                          make_optimizer)
+
+    class Params(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.cfg = ModelConfig()
+            self.conv = torch.nn.Conv2d(256, 256, 3)
+            self.fc = torch.nn.Linear(12544, 1024)
+            self.gn = torch.nn.GroupNorm(32, 256)
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    cpu = Params()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    grads = [[torch.randn(p.shape, generator=g) * (1e-6 if n == "fc.bias"
+                                                   else 1.0)
+              for n, p in cpu.named_parameters()] for _ in range(steps)]
+    out = []
+    for optimiser, norm_wd in (("adam", None), ("adamw", 0.0)):
+        tcfg = TrainConfig(optimiser=optimiser, norm_weight_decay=norm_wd)
+        host = copy.deepcopy(cpu)
+        card_net = copy.deepcopy(cpu).to(dev)
+        want, got = (make_optimizer(tcfg, host),
+                     make_optimizer(tcfg, card_net))
+        make_capturable(got)
+        start = {n: p.detach().clone() for n, p in host.named_parameters()}
+        for s, gs in enumerate(grads):
+            lr = tcfg.adam_lr * (0.5, 1.0, 0.75)[s % 3]
+            for p, q, gr in zip(host.parameters(), card_net.parameters(), gs):
+                p.grad, q.grad = gr.clone(), gr.to(dev)
+            apply_optimizer(want, lr)
+            apply_optimizer(got, torch.full((), lr, dtype=torch.float32,
+                                            device=dev))
+        gaps = {"param": 0.0, "update": 0.0, "moments": 0.0}
+        update_over_limit = 0.0  # the largest update gap over its limit
+        eps = torch.finfo(torch.float32).eps
+        for (n, p), q in zip(host.named_parameters(), card_net.parameters()):
+            a, b = p.detach(), q.detach().cpu()
+            gaps["param"] = max(gaps["param"], float(
+                (a - b).abs().max() / a.abs().max()))
+            da = a - start[n]
+            gap = float((da - (b - start[n])).abs().max() / da.abs().max())
+            limit = ADAM_UPDATE_LIMIT + float(
+                steps * eps * a.abs().max() / da.abs().max())
+            gaps["update"] = max(gaps["update"], gap)
+            update_over_limit = max(update_over_limit, gap / limit)
+            for key in ("exp_avg", "exp_avg_sq"):
+                x, y = want.state[p][key], got.state[q][key].cpu()
+                gaps["moments"] = max(gaps["moments"], float(
+                    (x - y).abs().max() / x.abs().max()))
+        steps_ok = all(int(got.state[q]["step"]) == steps
+                       and got.state[q]["step"].device.type == "cuda"
+                       for q in card_net.parameters())
+        rec = {"phase": f"{optimiser}_capturable_reference",
+               "optimiser": optimiser, "groups": len(got.param_groups),
+               "capturable": [gr["capturable"] for gr in got.param_groups],
+               "steps": steps, "gaps": gaps,
+               "update_gap_over_its_limit": update_over_limit,
+               "step_counters_ok": steps_ok,
+               "limits": {"param": HELD_LIMIT, "update": ADAM_UPDATE_LIMIT,
+                          "moments": HELD_LIMIT}, "card": card}
+        emit(rec)
+        if not all(rec["capturable"]) or not steps_ok \
+                or gaps["param"] > HELD_LIMIT \
+                or update_over_limit > 1 \
+                or gaps["moments"] > HELD_LIMIT:
+            raise AssertionError(f"{rec['phase']}: {rec}")
+        out.append(rec)
+    return out
+
+
+def cached_train_slice(torch, card, dev, model="faster", timed=5,
+                       streamed_images_per_s=None):
+    """Training at the ``TrainConfig`` defaults (batch 2, SGD, K = 8 steps
+    per dispatch, ``cache_gather`` "slice"; the v2 models under
+    ``MODEL_POLICY``) from a device cache of ``CACHED_N`` seeded synthetic
+    canvases (the cache's MiB against ``dataset_device_bytes``): one eager
+    group, the capture (its seconds) and its replay, one group held
+    against 8 eager cached steps from the same state (``held_group``),
+    then ``timed`` replays: images/s (wall, draws and input copies
+    included), step ms (CUDA-event replay ms / 8), the phase's peak
+    memory (allocated, which counts the capture's tensors, and reserved)
+    and what the capture added to the reserved memory (the graph's pool),
+    our kernels' launches per replay from the launch counts
+    (exactly 8 steps' worth) and from ``torch.profiler`` over one more
+    replay (equal), with the device's idle share there; the streamed
+    ``train`` phase's images/s of the same model beside it."""
+    from podtpu_torch.core.config import Config, DataConfig
+    from podtpu_torch.data.device_cache import dataset_device_bytes
+    from podtpu_torch.ops import _build
+
+    head = head_of(model)
+    cfg = Config(model=model_config(model, **({} if head == "keypoint"
+                                              else dict(num_classes=4))),
+                 data=DataConfig(aug_policy=MODEL_POLICY.get(model, "miso")))
+    mcfg, k, bs = cfg.model, cfg.train.steps_per_dispatch, \
+        cfg.train.batch_size
+    prefix = phase_name(model, "")
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    s = cached_setup(torch, dev, model, cfg, CACHED_N, SEED + 21)
+    cache, multi, arrays = s["cache"], s["multi"], s["cache"].arrays
+    cache_mib = sum(v.numel() * v.element_size()
+                    for v in arrays.values()) / 2 ** 20
+    want_mib = dataset_device_bytes(
+        CACHED_N, mcfg.image_size, mcfg.max_gt_boxes, head == "mask",
+        mcfg.mask_gt_stride, head == "keypoint", mcfg.num_keypoints) / 2 ** 20
+    make = group_inputs(torch, cfg, torch.Generator(device=dev).manual_seed(
+        SEED), [cfg.train.lr] * k)
+    groups = endless_groups(s["loader"], k)
+    losses = []
+    t0 = time.perf_counter()
+    losses.append(multi(arrays, *make(next(groups)))["loss"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    release(torch)  # what the capture adds to the reserved memory
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    losses.append(multi(arrays, *make(next(groups)))["loss"])
+    torch.cuda.synchronize()
+    first_replay_s = time.perf_counter() - t0
+    graph_pool = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    held = held_group(torch, s["net"], s["optimizer"], multi, s["single"],
+                      arrays, make(next(groups)))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    events = []
+    t_all = time.perf_counter()
+    for _ in range(timed):
+        ins = make(next(groups))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(multi(arrays, *ins)["loss"])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    replay_ms = sorted(a.elapsed_time(b) for a, b in events)
+    launches_timed = {n: _build.launches[n] for n in KERNELS}
+    launches = {n: v / timed for n, v in launches_timed.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    counted = []
+
+    def one_group():
+        before = {n: _build.launches[n] for n in KERNELS}
+        multi(arrays, *make(next(groups)))
+        counted.append({n: _build.launches[n] - before[n] for n in KERNELS})
+
+    prof = device_profile(torch, one_group, reps=1, unit="replay")
+    runs = prof["port_kernel_runs_per_replay"]
+    profiled = {n: runs.get(f, 0) for n, f in KERNEL_FUNCTIONS.items()}
+    want = {n: k * v for n, v in per_step_launches(model).items()}
+    loss_values = [float(v) for t in losses for v in t]
+    median = statistics.median(replay_ms)
+    rec = {"phase": prefix + "cached_train", "model": model_title(model),
+           "image_size": list(mcfg.image_size),
+           "compute_dtype": mcfg.compute_dtype, "batch_size": bs,
+           "steps_per_dispatch": k, "cache_gather": cfg.train.cache_gather,
+           "aug_policy": cfg.data.aug_policy, "images": CACHED_N,
+           "cache_mib": cache_mib, "dataset_device_mib": want_mib,
+           "cache_s": s["cache_s"], "warm_group_s": warm_s,
+           "capture_s": multi.capture_s,
+           "first_replay_s": first_replay_s - multi.capture_s,
+           "held": held, "replays": timed, "wall_s": wall,
+           "images_per_s": timed * k * bs / wall,
+           "replay_ms_p50": median, "replay_ms_max": replay_ms[-1],
+           "step_ms_p50": median / k,
+           "device_idle_share": prof["device_idle_share"],
+           "device_busy_ms_per_replay": prof["device_busy_ms"],
+           "peak_memory_gib": peak, "peak_reserved_gib": peak_reserved,
+           "graph_pool_gib": graph_pool,
+           "launches_per_replay": launches, "launches": launches_timed,
+           "profiled_launches_per_replay": profiled,
+           "counted_launches_profiled_replay": counted[-1],
+           "streamed_images_per_s": streamed_images_per_s,
+           "loss_first": loss_values[0], "loss_last": loss_values[-1],
+           "profile": prof, "card": card}
+    emit(rec)
+    bad = []
+    if not all(np.isfinite(v) for v in loss_values):
+        bad.append("a loss is not finite")
+    if multi.captures != 1:
+        bad.append(f"{multi.captures} captures")
+    if not held["within_limit"]:
+        bad.append(f"held group {held}")
+    if launches != want or counted[-1] != want or profiled != want:
+        bad.append(f"launches per replay {launches}, profiled replay "
+                   f"counted {counted[-1]} and ran {profiled}, expected "
+                   f"{want}")
+    if abs(cache_mib - want_mib) > 0.05 * want_mib:
+        bad.append(f"cache {cache_mib} MiB against {want_mib}")
+    del s, cache, multi, arrays, losses
+    release(torch)
+    if bad:
+        raise AssertionError(f"{prefix}cached_train: {bad}")
+    return rec
+
+
+def windowed_driver_phase(torch, card, dev, driver_first, config=None,
+                          size=(1024, 1024), n_images=24):
+    """``train()`` for one epoch on the driver phase's images with
+    ``PODTPU_DEVICE_CACHE_BYTES`` set so that a window holds 8 samples
+    (a multiple of the batch, so the batches are the full cache's), held
+    against the driver phase's first epoch (the full cache, from the same
+    start): every step's dataset indices and image weights equal, the
+    epoch loss and the parameters within ``HELD_LIMIT``."""
+    from podtpu_torch.core.config import Config
+    from podtpu_torch.data import Project, imageio
+    from podtpu_torch.data.device_cache import dataset_device_bytes
+    from podtpu_torch.train import train as driver
+
+    mcfg = (config or Config()).model
+    per = dataset_device_bytes(1, size, mcfg.max_gt_boxes)
+    images, metas = in_memory_images(np.random.default_rng(SEED + 8),
+                                     n_images, size)
+    project = Project()
+    for m in metas:
+        project.add_image(m)
+    tmp = tempfile.mkdtemp(prefix="podtpu_windowed_")
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    budget = os.environ.get("PODTPU_DEVICE_CACHE_BYTES")
+    os.environ["PODTPU_DEVICE_CACHE_BYTES"] = str(2 * 8 * per + 1)
+    try:
+        _, launches, rec, seconds = driven(
+            torch, driver, driver.train, project, output_dir=tmp,
+            name="windowed", batch_size=2, seed=0, config=config,
+            device=dev, max_epochs=1, keep=("batches", "states"))
+    finally:
+        imageio.read_rgb = read_rgb
+        if budget is None:
+            del os.environ["PODTPU_DEVICE_CACHE_BYTES"]
+        else:
+            os.environ["PODTPU_DEVICE_CACHE_BYTES"] = budget
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = driver_first
+    got_batches, want_batches = rec["batches"], want["batches"]
+    same_batches = len(got_batches) == len(want_batches) and all(
+        np.array_equal(gi, wi) and np.array_equal(gw, ww)
+        for (gi, gw), (wi, ww) in zip(got_batches, want_batches))
+    epoch = rec["epochs"][0]
+    loss_gap = abs(epoch["loss"] - want["loss"]) / abs(want["loss"])
+    state = rec["states"][0]
+    param_gap = max(relative_gap(torch, state[k], v)
+                    for k, v in want["state"].items())
+    line = {"phase": "windowed_driver", "images": n_images,
+            "window": 8, "budget_bytes": 2 * 8 * per + 1,
+            "steps": epoch["steps"], "seconds": seconds,
+            "train_s": epoch["eval_start"] - epoch["start"],
+            "train_images_per_s": epoch["steps"] * 2
+            / (epoch["eval_start"] - epoch["start"]),
+            "full_cache_train_images_per_s": want["train_images_per_s"],
+            "same_batches": same_batches, "epoch_loss": epoch["loss"],
+            "full_cache_epoch_loss": want["loss"],
+            "epoch_loss_gap": loss_gap, "parameter_gap": param_gap,
+            "bitwise": loss_gap == 0 and param_gap == 0,
+            "limit": HELD_LIMIT, "launches": launches, "card": card}
+    emit(line)
+    check_driver_launches("windowed_driver", launches, epoch["steps"],
+                          epoch["eval_batches"])
+    if not same_batches or max(loss_gap, param_gap) > HELD_LIMIT:
+        raise AssertionError(f"windowed_driver: batches equal "
+                             f"{same_batches}, loss gap {loss_gap}, "
+                             f"parameter gap {param_gap}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -3806,8 +4506,17 @@ def main() -> int:
                           seeds=range(SEED, SEED + 2))
     train = train_slice(torch, card, "cuda")
     captured.append(("train", capture_nms(nms, train.pop("replay"))))
-    tmp, model_dir, driver, (eval_nms, eval_roi) = driver_phase(
-        torch, card, "cuda", train["images_per_s"])
+    # Phase 16: the device-resident data and K steps per dispatch.
+    for model, optimiser in (("faster", "sgd"), ("faster", "adamw"),
+                             ("retinanet", "sgd")):
+        cached_reference(torch, card, "cuda", model, optimiser)
+    adam_capturable_reference(torch, card, "cuda")
+    cached = {"faster": cached_train_slice(
+        torch, card, "cuda", streamed_images_per_s=train["images_per_s"])}
+    tmp, model_dir, driver, (eval_nms, eval_roi), first_epoch = \
+        driver_phase(torch, card, "cuda", train["images_per_s"])
+    windowed_driver_phase(torch, card, "cuda", first_epoch)
+    del first_epoch
     try:
         infer, (infer_nms, infer_roi) = infer_phase(torch, card, "cuda",
                                                     model_dir)
@@ -3823,6 +4532,9 @@ def main() -> int:
     mask_train = train_slice(torch, card, "cuda", model="mask", timed=10)
     capture_step(mask_train.pop("replay"), ModelConfig().mask_pool_size,
                  head_captured, "mask_train")
+    cached["mask"] = cached_train_slice(
+        torch, card, "cuda", "mask", timed=3,
+        streamed_images_per_s=mask_train["images_per_s"])
     mask_eval = head_eval_slice(torch, card, "cuda", head_captured, "mask")
     mask_driver = head_driver_phase(
         torch, card, "cuda", "mask", after=lambda d: tiled_head_phase(
@@ -3833,6 +4545,9 @@ def main() -> int:
                  "keypoint_train")
     capture_step(kp_train.pop("replay_expand"), kp_size, head_captured,
                  "keypoint_train_expand")
+    cached["keypoint"] = cached_train_slice(
+        torch, card, "cuda", "keypoint", timed=3,
+        streamed_images_per_s=kp_train["images_per_s"])
     kp_eval = head_eval_slice(torch, card, "cuda", head_captured, "keypoint")
     kp_driver = head_driver_phase(torch, card, "cuda", "keypoint")
     v2_captured = {"k2": [], "k3": []}
@@ -3840,10 +4555,16 @@ def main() -> int:
     capture_step(v2_train["replay"], ModelConfig().roi_pool_size,
                  v2_captured, "v2_train")
     captured.append(("v2_train", capture_nms(nms, v2_train.pop("replay"))))
+    cached["faster_v2"] = cached_train_slice(
+        torch, card, "cuda", "faster_v2", timed=3,
+        streamed_images_per_s=v2_train["images_per_s"])
     mask_v2_train = train_slice(torch, card, "cuda", model="mask_v2",
                                 timed=5, extra_steps=0)
     capture_step(mask_v2_train.pop("replay"), ModelConfig().mask_pool_size,
                  head_captured, "mask_v2_train")
+    cached["mask_v2"] = cached_train_slice(
+        torch, card, "cuda", "mask_v2", timed=3,
+        streamed_images_per_s=mask_v2_train["images_per_s"])
     v2_driver = v2_driver_phase(torch, card, "cuda")
     # Phase 14: the one-stage families.
     for model in ONE_STAGE:
@@ -3855,8 +4576,12 @@ def main() -> int:
             torch, card, "cuda", model_config(model, num_classes=4),
             captured, model=model)
     for model in ONE_STAGE:
-        one_stage[f"{model}_train"] = train_slice(
-            torch, card, "cuda", model=model, timed=10)["launches"]
+        streamed = train_slice(torch, card, "cuda", model=model, timed=10)
+        one_stage[f"{model}_train"] = streamed["launches"]
+        cached[model] = cached_train_slice(
+            torch, card, "cuda", model, timed=3,
+            streamed_images_per_s=streamed["images_per_s"])
+        del streamed
     for model in ("fcos", "retinanet_v2"):
         after = None if model == "fcos" else (
             lambda d: tiled_head_phase(torch, card, "cuda", d,
@@ -3907,7 +4632,10 @@ def main() -> int:
                    "mask_v2_train": mask_v2_train["launches"].get(name, 0),
                    **{k: v[name] for k, v in v2_driver.items()},
                    **{k: v.get(name, 0) for k, v in one_stage.items()},
-                   **{k: v[name] for k, v in tiled_out["launches"].items()}}
+                   **{k: v[name] for k, v in tiled_out["launches"].items()},
+                   # The cached_train phases' timed replays.
+                   **{f"{m}_cached_train": r["launches"][name]
+                      for m, r in cached.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path={k: v for k, v in by_path.items() if v})
 

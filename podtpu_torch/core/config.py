@@ -204,8 +204,11 @@ COCO_17_HFLIP_INDS = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13,
 class TrainConfig:
     """Optimisation and schedule.  Defaults mirror the reference trainer
     (torch SGD lr 0.005, momentum 0.9, weight decay 5e-4; Adam lr 1e-3).
-    ``steps_per_dispatch`` and ``cache_gather`` select the JAX package's
-    device-cache mechanisms; the port carries them for round trips."""
+    With the dataset held on the device (``DataConfig.device_data_cache``),
+    ``train()`` runs full groups of ``steps_per_dispatch`` steps as one
+    dispatch (one CUDA graph replay on the GPU; 1 runs every step singly)
+    and each step gathers its batch there as ``cache_gather`` says
+    ("take" or "slice": one ``index_select`` a field either way)."""
 
     batch_size: int = 2
     optimiser: str = "sgd"  # 'sgd' | 'adam' | 'adamw'
@@ -261,6 +264,9 @@ class DataConfig:
     device_prefetch: bool = False
     copy_paste: bool = False
     decode_cache: object = "auto"
+    # Training data held on the device: "auto" (when it fits the budget of
+    # podtpu_torch/data/device_cache.py; else the windowed stream), True,
+    # or False (batches stream from the host through the Loader).
     device_data_cache: object = "auto"
 
 

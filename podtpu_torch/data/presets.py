@@ -68,7 +68,9 @@ def _select(do: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 def _flip_kps_h(kps, width, hflip_inds=None):
     out = torch.stack([width - kps[..., 0], kps[..., 1], kps[..., 2]], -1)
     if hflip_inds is not None and len(hflip_inds):
-        out = out[:, :, list(hflip_inds)]
+        # One view a joint, stacked: indexing by a list would copy the
+        # indices from the host, which a CUDA graph capture refuses.
+        out = torch.stack([out[:, :, i] for i in hflip_inds], 2)
     return out
 
 

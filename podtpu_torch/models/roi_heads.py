@@ -240,9 +240,38 @@ class KeypointRCNNPredictor(nn.Module):
             compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.kps_score_lowres(x).float()
+        return _Upsample2x.apply(self.kps_score_lowres(x).float())
+
+
+def _upsample2x_transpose(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of the 2x half-pixel linear upsample along ``dim``:
+    output ``2i`` reads input ``i`` at 0.75 and ``i - 1`` at 0.25, output
+    ``2i + 1`` reads ``i`` at 0.75 and ``i + 1`` at 0.25, the edges their
+    own input at 1."""
+    g = g.movedim(dim, -1)
+    even, odd = g[..., 0::2], g[..., 1::2]
+    x = (0.75 * even + 0.25 * F.pad(even[..., 1:], (0, 1))
+         + 0.75 * odd + 0.25 * F.pad(odd[..., :-1], (1, 0)))
+    x[..., 0] += 0.25 * even[..., 0]
+    x[..., -1] += 0.25 * odd[..., -1]
+    return x.movedim(-1, dim)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate(scale_factor=2, mode="bilinear",
+    align_corners=False)`` with a backward that sums in a fixed order (the
+    transpose, one axis at a time, in slices and adds): on the GPU the
+    interpolation's own backward adds with atomics, so two runs of a step
+    would part in their last bits."""
+
+    @staticmethod
+    def forward(ctx, x):
         return F.interpolate(x, scale_factor=2, mode="bilinear",
                              align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _upsample2x_transpose(_upsample2x_transpose(g, -1), -2)
 
 
 class BoxKeypointHead(BoxHead):

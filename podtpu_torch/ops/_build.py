@@ -14,11 +14,16 @@ module of the port on a machine with neither ``nvcc`` nor a GPU.
 
 ``launches`` counts kernel launches by kernel name.  Each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  A CUDA graph capture calls the
+wrappers but launches nothing, and a replay launches without calling them:
+the graph's runner records what a capture counted
+(:func:`captured_launches`) and adds it again on every replay
+(:func:`add_launches`), so ``launches`` counts the launches the card ran.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -53,6 +58,29 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     launches[name] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count ``counts`` more launches (a graph replay's)."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Hold apart what the wrappers count inside the block (a graph
+    capture, which launches nothing): yields a dict that afterwards holds
+    those counts by kernel name, and leaves ``launches`` as it was."""
+    before = dict(launches)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name in list(launches):
+            n = launches[name] - before.get(name, 0)
+            if n:
+                delta[name] = n
+                launches[name] -= n
 
 
 def _nvcc() -> str:

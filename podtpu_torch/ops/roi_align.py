@@ -165,10 +165,11 @@ def roi_align_planes_plain(planes: torch.Tensor, boxes: torch.Tensor,
     flat = planes.float().reshape(-1)
     base = (plane_index.long() * (hgt * wid)).reshape(-1, 1, 1)  # [N, 1, 1]
     ys, xs = _sample_coords(boxes, 1.0 / float(stride), out, ratio)
+    # Fills, not copies from the host: this runs inside captured steps.
     ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(
-        ys, torch.tensor(hgt, device=dev))
+        ys, torch.full((), hgt, dtype=torch.int64, device=dev))
     xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(
-        xs, torch.tensor(wid, device=dev))
+        xs, torch.full((), wid, dtype=torch.int64, device=dev))
 
     def at(yi, xi):
         return flat[base + yi[:, :, None] * wid + xi[:, None, :]]  # [N, n, n]

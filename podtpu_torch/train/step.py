@@ -20,7 +20,7 @@ from podtpu_torch.data.presets import (SCALE_RANGES, AugmentDraws,
 from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.detector import ModelDraws, draw_model
 from podtpu_torch.ops.image_ops import copy_paste_batch
-from podtpu_torch.train.optim import apply_optimizer
+from podtpu_torch.train.optim import apply_optimizer, make_capturable
 
 
 def images_to_float(images: torch.Tensor) -> torch.Tensor:
@@ -61,17 +61,22 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     The model is moved to ``device`` (in place: the optimiser keeps its
     parameters), which is the GPU unless the caller passes ``"cpu"``; with
-    no GPU and no device this raises.  ``batch`` holds ``image`` uint8
+    no GPU and no device this raises; there an Adam or AdamW optimiser is
+    made capturable (:func:`podtpu_torch.train.optim.make_capturable`), so
+    a state to resume from is loaded first.  ``batch`` holds ``image`` uint8
     ``[B, H, W, 3]``, ``boxes [B, G, 4]``, ``labels [B, G]``, ``valid
     [B, G]`` and optionally ``image_weight [B]``, mask targets ``masks
     [B, G, Hm, Wm]`` and keypoint targets ``keypoints [B, G, K, 3]``; it is
     moved to the device.  With ``DataConfig.copy_paste`` the batch is
     copy-pasted before the policy (keypoints stay as they were, as in the
     JAX step).
+    ``lr`` is a float or a 0-d float32 tensor on the device (the form a
+    CUDA graph of steps reads: nothing in the step reads the device from
+    the host, and a batch already on the device is not copied).
     ``generator`` (on the device) makes the step's draws unless ``draws``
     gives them.  ``metrics`` holds the losses (``loss_mask`` too for a mask
     model, ``loss_keypoint`` for a keypoint model), their sum ``loss`` and
-    ``lr``, as tensors (reading them waits for the step).
+    ``lr``, as tensors on the device (reading them waits for the step).
     ``mark``, if given, is called with ``"augment"``, ``"forward_losses"``,
     ``"backward"`` and ``"optimizer"`` as each part of a step begins, and
     with ``"end"`` after the last, so a profiler can time the parts.
@@ -81,6 +86,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     clip = cfg.train.clip_grad_norm
     dev = resolve_device(device)
     model.to(dev)
+    make_capturable(optimizer)
     mark = mark or (lambda part: None)
 
     def step(batch: Dict, lr, generator: Optional[torch.Generator] = None,
@@ -116,11 +122,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         mark("optimizer")
+        if not torch.is_tensor(lr):
+            lr = torch.full((), float(lr), dtype=torch.float32, device=dev)
         apply_optimizer(optimizer, lr, clip)
         mark("end")
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
-        metrics["lr"] = torch.as_tensor(float(lr))
+        metrics["lr"] = lr
         return metrics
 
     return step

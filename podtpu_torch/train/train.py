@@ -9,12 +9,21 @@ after the LR drops; and the artifacts (model directory, ``labels.txt``,
 ``results.txt``) in ``output_dir/<name or timestamp>``.  Per-epoch resume
 checkpoints and the NaN guard are the JAX package's additions, kept.
 
-The JAX package trains from a device-resident copy of the dataset, K steps
-per dispatch; its batches come in the order of :class:`Loader`.  The port
-streams the same batches through :class:`Loader` and runs one step at a
-time.  Each epoch's random draws come from a ``torch.Generator`` on the
-model's device seeded from ``(seed, epoch)``, so a resumed run draws what
-the straight run drew; ``draws`` replaces them with the caller's.
+As in the JAX package, a dataset that fits the device budget is held on
+the device (``DataConfig.device_data_cache``: "auto" and
+:func:`~podtpu_torch.data.device_cache.fits`, True, or False), each step
+gathers its batch there (``TrainConfig.cache_gather``), and full groups of
+``TrainConfig.steps_per_dispatch`` steps run as one dispatch: on the GPU
+one CUDA graph replay (:class:`~podtpu_torch.data.device_cache.
+CachedMultiStep`), on the CPU a loop of the same steps; the tail of an
+epoch runs single steps.  A dataset past the budget streams through the
+windowed device cache, one step at a time; ``device_data_cache=False``
+streams batches from the host through :class:`Loader`.  The batches come
+in the order of :class:`Loader` on every path.  Each epoch's random draws
+come from a ``torch.Generator`` on the model's device seeded from ``(seed,
+epoch)``, drawn in step order (a group's before its replay), so a resumed
+run draws what the straight run drew; ``draws`` replaces them with the
+caller's.
 """
 from __future__ import annotations
 
@@ -33,7 +42,15 @@ from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
                                       model_config_from_dict,
                                       retinanet_config, retinanet_v2_config)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
+from podtpu_torch.core.profiling import start_trace, stop_trace
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
+from podtpu_torch.data.device_cache import (DeviceDataCache, DeviceLoader,
+                                            WindowedStreamLoader,
+                                            dataset_device_bytes, fits,
+                                            gather_rows,
+                                            make_cached_multi_step,
+                                            make_cached_train_step,
+                                            to_device)
 from podtpu_torch.data.loader import Loader
 from podtpu_torch.data.project import Project
 from podtpu_torch.infer.inference import load_inference_model, resolve_device
@@ -47,7 +64,8 @@ from podtpu_torch.train.coco_metrics import STAT_NAMES
 from podtpu_torch.train.evaluate import evaluate
 from podtpu_torch.train.optim import make_optimizer
 from podtpu_torch.train.schedules import make_scheduler
-from podtpu_torch.train.step import TrainDraws, make_train_step, warmup_factor
+from podtpu_torch.train.step import (TrainDraws, draw_train, make_train_step,
+                                     warmup_factor)
 
 
 class ZeroMapMonitor:
@@ -94,6 +112,21 @@ class ZeroMapMonitor:
               "is expected to start slowly.")
         print("!" * 78)
         return False
+
+
+def _dispatch_groups(loader, k: int):
+    """Group a loader's ``(batch, bvalid)`` stream into full groups of
+    ``k`` (one dispatch each) plus single-item tail groups (a padded step
+    would not be a no-op: weight decay and momentum apply even at zero loss
+    weight)."""
+    buf = []
+    for item in loader:
+        buf.append(item)
+        if len(buf) == k:
+            yield buf
+            buf = []
+    for item in buf:
+        yield [item]
 
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -319,14 +352,39 @@ def train(project: Project,
     print(f"- train: {len(train_idx)}")
     print(f"- test:  {len(test_idx)}"
           + (" (held-out tasks)" if test_project is not None else ""))
-    print(f"Batches stream through the Loader on {dev} "
-          f"(device_data_cache={cfg.data.device_data_cache!r}, "
-          f"steps_per_dispatch={cfg.train.steps_per_dispatch}, "
-          f"cache_gather={cfg.train.cache_gather!r} leave them unchanged; "
-          "the device-resident cache waits for ROADMAP.md item 19)")
-    loader_train = Loader(dataset, batch_size, indices=train_idx,
-                          shuffle=True, seed=seed, num_workers=num_workers,
-                          place=dev if cfg.data.device_prefetch else None)
+
+    # Device-resident training data: a dataset within the budget is held on
+    # the device once and each step gathers its batch there; past the budget
+    # it streams through the windowed cache; device_data_cache=False
+    # streams batches from the host.
+    use_device_cache = (cfg.data.device_data_cache is not False
+                        and (cfg.data.device_data_cache is True
+                             or fits(dataset)))
+    use_window_stream = (not use_device_cache
+                         and cfg.data.device_data_cache is not False)
+    cache = None
+    if use_device_cache:
+        cache = DeviceDataCache(dataset, device=dev)
+        loader_train = DeviceLoader(cache, batch_size, indices=train_idx,
+                                    shuffle=True, seed=seed, raw=True)
+        total_mib = dataset_device_bytes(
+            len(dataset), cfg.model.image_size, cfg.model.max_gt_boxes,
+            cfg.model.with_mask, cfg.model.mask_gt_stride) >> 20
+        print(f"Training data pinned on device ({total_mib} MiB)")
+    elif use_window_stream:
+        loader_train = WindowedStreamLoader(dataset, batch_size,
+                                            indices=train_idx, shuffle=True,
+                                            seed=seed, device=dev)
+        print(f"Streaming via windowed device cache "
+              f"({loader_train.window} samples/window, double-buffered)")
+    else:
+        # With device_prefetch the loader's thread copies each batch to
+        # the device on a side stream, overlapping the previous step.
+        loader_train = Loader(dataset, batch_size, indices=train_idx,
+                              shuffle=True, seed=seed,
+                              num_workers=num_workers,
+                              place=dev if cfg.data.device_prefetch
+                              else None)
     loader_test = Loader(test_dataset, batch_size, indices=test_idx,
                          shuffle=False, num_workers=num_workers)
 
@@ -368,6 +426,29 @@ def train(project: Project,
         start_epoch = restored["epoch"] + 1
         print(f"Resumed from epoch {restored['epoch']}")
     train_step = make_train_step(model, optimizer, cfg, device=dev)
+    cached_step = multi_step = None
+    if use_device_cache or use_window_stream:
+        # The gather from the device-resident arrays (the pinned dataset or
+        # the stream's current window) inside the step.
+        cached_step = make_cached_train_step(train_step,
+                                             gather=cfg.train.cache_gather)
+    if use_device_cache and cfg.train.steps_per_dispatch > 1:
+        # Full groups: K steps in one dispatch, a CUDA graph replay on the
+        # GPU.  Tail steps run singly.
+        multi_step = make_cached_multi_step(
+            train_step, cfg.train.steps_per_dispatch,
+            gather=cfg.train.cache_gather)
+    # The shape of a batch's gt slots, all that drawing a step needs.
+    gt_shape = {"boxes": torch.empty((batch_size, cfg.model.max_gt_boxes, 4),
+                                     device="meta")}
+
+    def step_batch(idx, bvalid):
+        """A cached step's batch as the step sees it (for ``draws``)."""
+        arrays = cache.arrays if use_device_cache else loader_train.arrays
+        out = gather_rows(arrays, to_device(idx, dev, torch.int64),
+                          cfg.train.cache_gather)
+        out["image_weight"] = torch.from_numpy(bvalid.astype(np.float32))
+        return out
 
     def eval_forward(images):
         with torch.inference_mode():
@@ -375,7 +456,7 @@ def train(project: Project,
 
     # -- epoch loop (reference training.py:120-127) ---------------------------
     print("=" * 80)
-    # Optional profiler trace of steps 3 to 6 of the first epoch.
+    # Optional profiler trace of dispatches 3 to 6 of the first epoch.
     trace_dir = os.environ.get("PODTPU_TRACE_DIR")
     prof = None
     epoch = start_epoch
@@ -394,27 +475,64 @@ def train(project: Project,
         logger = MetricLogger()
         iters = len(loader_train)
         gen = epoch_generator(seed, epoch, dev) if draws is None else None
-        trace_from = min(3, iters - 1)
-        loss_sum = None  # on the device; read at log steps and epoch end
-        for it, (batch, bvalid) in enumerate(
-                logger.log_every(loader_train, cfg.train.log_every,
-                                 header=f"Epoch: [{epoch}]", total=iters)):
+        k_dispatch = cfg.train.steps_per_dispatch if multi_step is not None \
+            else 1
+        n_dispatch = iters // k_dispatch + iters % k_dispatch
+        trace_from = min(3, n_dispatch - 1)
+        loss_sum = None  # on the device; read at log dispatches and the end
+        bi = 0  # the step within the epoch (warmup, draws)
+        for it, group in enumerate(
+                logger.log_every(_dispatch_groups(loader_train, k_dispatch),
+                                 cfg.train.log_every,
+                                 header=f"Epoch: [{epoch}]",
+                                 total=n_dispatch)):
             if trace_dir and epoch == start_epoch and it == trace_from:
-                prof = _start_trace(dev)
-            lr = sched.lr_for(epoch) * warmup_factor(cfg, epoch, it, iters)
-            batch = dict(batch)
-            batch["image_weight"] = torch.from_numpy(
-                bvalid.astype(np.float32))
-            metrics = train_step(
-                batch, lr, generator=gen,
-                draws=None if draws is None else draws(epoch, it, batch))
-            steps_done += 1
-            loss_sum = metrics["loss"] if loss_sum is None \
-                else loss_sum + metrics["loss"]
+                prof = start_trace(dev)
+            lrs = [sched.lr_for(epoch)
+                   * warmup_factor(cfg, epoch, bi + j, iters)
+                   for j in range(len(group))]
+            if len(group) > 1:
+                # A full group: K steps in one dispatch, each with its own
+                # lr and draws, drawn here in step order.
+                step_draws = [
+                    draws(epoch, bi + j, step_batch(*item)) if draws
+                    is not None else draw_train(gen, cfg, gt_shape)
+                    for j, item in enumerate(group)]
+                metrics = multi_step(
+                    cache.arrays, np.stack([b for b, _ in group]),
+                    np.stack([v.astype(np.float32) for _, v in group]),
+                    np.asarray(lrs, np.float32), step_draws)
+                group_loss = metrics["loss"].sum()
+                metrics = {k: v[-1] for k, v in metrics.items()}
+            elif cached_step is not None:
+                # `batch` is the [B] index vector; the step gathers from
+                # the pinned dataset or the stream's current window.
+                batch, bvalid = group[0]
+                arrays = cache.arrays if use_device_cache \
+                    else loader_train.arrays
+                metrics = cached_step(
+                    arrays, batch, bvalid.astype(np.float32), lrs[0],
+                    generator=gen,
+                    draws=None if draws is None
+                    else draws(epoch, bi, step_batch(batch, bvalid)))
+                group_loss = metrics["loss"]
+            else:
+                batch, bvalid = group[0]
+                batch = dict(batch)
+                batch["image_weight"] = torch.from_numpy(
+                    bvalid.astype(np.float32))
+                metrics = train_step(
+                    batch, lrs[0], generator=gen,
+                    draws=None if draws is None else draws(epoch, bi, batch))
+                group_loss = metrics["loss"]
+            bi += len(group)
+            steps_done += len(group)
+            loss_sum = group_loss if loss_sum is None \
+                else loss_sum + group_loss
             if prof is not None and it >= trace_from + 3:
-                _stop_trace(prof, trace_dir)
+                stop_trace(prof, trace_dir)
                 prof = None
-            if it % cfg.train.log_every == 0 or it == iters - 1:
+            if it % cfg.train.log_every == 0 or it == n_dispatch - 1:
                 host = {k: float(v) for k, v in metrics.items()}
                 if cfg.train.nan_is_fatal and not np.isfinite(host["loss"]):
                     print(f"Loss is {host['loss']}, stopping training")
@@ -422,7 +540,7 @@ def train(project: Project,
                     sys.exit(1)
                 logger.update(**host)
         if prof is not None:
-            _stop_trace(prof, trace_dir)
+            stop_trace(prof, trace_dir)
             prof = None
         epoch_loss = float(loss_sum) / iters if loss_sum is not None else 0.0
         if cfg.train.nan_is_fatal and not np.isfinite(epoch_loss):
@@ -457,25 +575,6 @@ def train(project: Project,
         ckpt.save_model(output_dir, model, cfg.model, labels)
         _save_aux_results(output_dir, final_eval, stats, labels)
     return output_dir
-
-
-def _start_trace(dev: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
-
-
-def _stop_trace(prof, trace_dir: str) -> None:
-    prof.stop()
-    os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"[podtpu] profiler trace written to {path}")
 
 
 def _save_aux_results(output_dir, final_eval, stats, labels):
