@@ -213,6 +213,29 @@ Phases, one JSON line each:
    parameters held against the ``driver`` phase's first epoch (the full
    cache, the same start).
 
+17. mobile trunks under Faster R-CNN (``MOBILE``: MobileNetV2, the
+   MobileNetV3-Large FPN and its 320 recipe, each with trainable BatchNorm
+   and every unit training, as ``train()`` builds them from scratch).
+   ``mobile_reference`` (MobileNetV2, the V3 FPN): a 128^2 float32 model
+   with random norm values on the card against the CPU, TF32 off: the
+   eval forward, one train step teacher-forced norm by norm to the CPU's
+   outputs (each correction under 1e-4 of its output; losses, gradients,
+   parameters to ``check_train_reference``'s limits, running statistics
+   1e-5), and the eval forward's features after it.
+   ``mobilenet_v2_serve``, ``mobilenet_v3_fpn_serve`` (1024^2) and
+   ``mobilenet_v3_320_serve`` (320^2): phase 5 with their breakdowns, one
+   batch's K1 and K2 inputs captured.  ``mobilenet_v2_train`` and
+   ``mobilenet_v3_fpn_train``: phase 7, 3 + 10 steps, one step's K1, K2
+   and K3 inputs captured, each beside its ``*_cached_train`` cell, whose
+   held replay must equal its 8 eager steps to the bit, the norms' running
+   statistics included.  ``mobilenet_v3_fpn_driver``: ``train(backbone=
+   "mobilenet_v3_fpn")`` from scratch for 2 epochs (the switch to
+   trainable BatchNorm printed and stored), ``evaluate_model`` (one
+   batch's K2 inputs captured), ``infer`` (its K1 calls captured) and 4
+   server requests.  K1, K2 and K3 are then held on these inputs with
+   the others (the ``kernels`` line's ``mobile`` entries: single-level
+   RoIAlign at 1280 and 256 channels).
+
 Launches under graph replay: a capture calls the kernels' wrappers, which
 count, but launches nothing; a replay launches without calling them.  The
 runner (``CachedMultiStep``) holds apart what its capture counted and adds
@@ -955,13 +978,25 @@ ONE_STAGE = ("retinanet", "retinanet_v2", "fcos")
 # The augmentation policy each model trains with: the v2 recipes' scale
 # jitters, the reference pipeline's miso for the others.
 MODEL_POLICY = {"faster_v2": "lsj", "mask_v2": "multiscale"}
+# The mobile trunks under Faster R-CNN (phase 17): MobileNetV2 (one
+# stride-32 map of 1280 channels), MobileNetV3-Large-FPN and its 320
+# recipe, each as ``train()`` builds it from scratch: trainable BatchNorm,
+# every unit training.
+MOBILE = ("mobilenet_v2", "mobilenet_v3_fpn", "mobilenet_v3_320")
 
 
 def model_config(model, **kw):
-    """The ``ModelConfig`` of ``model`` (one of ``MODELS``) with the fields
-    ``kw``: a one-stage family's preset over ``ModelConfig(**kw)``."""
+    """The ``ModelConfig`` of ``model`` (one of ``MODELS`` or ``MOBILE``)
+    with the fields ``kw``: a one-stage family's preset over
+    ``ModelConfig(**kw)``; a mobile trunk's preset, then ``kw``."""
     from podtpu_torch.core import config
 
+    if model in MOBILE:
+        preset = config.mobilenet_config(config.ModelConfig()) \
+            if model == "mobilenet_v2" else config.mobilenet_v3_fpn_config(
+                config.ModelConfig(), low_res=model == "mobilenet_v3_320")
+        return dataclasses.replace(preset, backbone_norm="batch",
+                                   trainable_backbone_stages=5, **kw)
     cfg = config.ModelConfig(**kw, **model_kwargs(model))
     preset = {"retinanet": config.retinanet_config,
               "retinanet_v2": config.retinanet_v2_config,
@@ -999,7 +1034,7 @@ def model_kwargs(model):
     from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, ModelConfig,
                                           fasterrcnn_v2_config)
 
-    if model in ONE_STAGE:
+    if model in ONE_STAGE + MOBILE:
         return {}
     head = {"mask": dict(with_mask=True),
             "keypoint": dict(with_keypoints=True,
@@ -1020,7 +1055,12 @@ def head_of(model):
 
 def model_title(model):
     """``model``'s name in the records, e.g. mask_rcnn_resnet50_fpn_v2,
-    retinanet_resnet50_fpn_v2."""
+    retinanet_resnet50_fpn_v2, fasterrcnn_mobilenet_v3_large_320_fpn."""
+    if model in MOBILE:
+        return {"mobilenet_v2": "fasterrcnn_mobilenet_v2",
+                "mobilenet_v3_fpn": "fasterrcnn_mobilenet_v3_large_fpn",
+                "mobilenet_v3_320": "fasterrcnn_mobilenet_v3_large_320_fpn"
+                }[model]
     base, _, v2 = model.partition("_")
     kind = "" if model in ONE_STAGE else "_rcnn"
     return f"{base}{kind}_resnet50_fpn" + ("_v2" if v2 else "")
@@ -1262,7 +1302,8 @@ def device_profile(torch, run, reps=3, unit="forward"):
                 for key, us, count in ops]}
 
 
-def serve_slice(torch, card, dev, cfg, captured, model="faster"):
+def serve_slice(torch, card, dev, cfg, captured, model="faster",
+                roi_captured=None):
     """``cfg``'s model (``model``, one of ``MODELS``: "faster", or
     "faster_v2" for the ``v2_serve`` phase, or a one-stage family) with
     seeded random weights (a one-stage model's scores lifted,
@@ -1270,7 +1311,9 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
     ``DetectionServer(batch_size=4)`` behind HTTP to 8 client threads;
     each batch must launch K1 twice and K2 once (a one-stage model: K1
     once, its one segment an image at least 90 % valid boxes, and no K2).
-    Then its breakdown line.  Returns the launches."""
+    Then its breakdown line.  One batch's K1 inputs go to ``captured``,
+    its K2 inputs to ``roi_captured`` when given.  Returns the
+    launches."""
     from podtpu_torch.infer.server import DetectionServer, make_handler
     from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build, nms
@@ -1350,6 +1393,9 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster"):
             prof = device_profile(torch, forward)
             calls = capture_nms(nms, forward)
             captured.append((phase_name(model, "serve"), calls))
+            if roi_captured is not None:
+                roi_captured.append((phase_name(model, "serve"),
+                                     capture_roi_align(forward)))
         finally:
             httpd.shutdown()
             http_thread.join(timeout=30)
@@ -1807,8 +1853,12 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
                                    mcfg.detections_per_image, 4)
         assert bool(torch.isfinite(det.boxes).all()) and \
             bool(torch.isfinite(det.scores).all())
-        same = all(torch.equal(a, b) for a, b in zip(
-            served.state_dict().values(), net.state_dict().values()))
+        # A trainable norm's step count has no place in a model
+        # directory: it loads as 0.
+        trained = net.state_dict()
+        same = all(torch.equal(v, trained[k]) for k, v in
+                   served.state_dict().items()
+                   if not k.endswith("num_batches_tracked"))
         if not same:
             raise AssertionError("the served model's weights differ from "
                                  "the trained ones")
@@ -4376,7 +4426,10 @@ def cached_train_slice(torch, card, dev, model="faster", timed=5,
         bad.append("a loss is not finite")
     if multi.captures != 1:
         bad.append(f"{multi.captures} captures")
-    if not held["within_limit"]:
+    if not held["within_limit"] or (model in MOBILE
+                                    and not held["bitwise"]):
+        # A mobile trunk's replay must also write its norms' running
+        # statistics to the bit.
         bad.append(f"held group {held}")
     if launches != want or counted[-1] != want or profiled != want:
         bad.append(f"launches per replay {launches}, profiled replay "
@@ -4458,6 +4511,359 @@ def windowed_driver_phase(torch, card, dev, driver_first, config=None,
                              f"{same_batches}, loss gap {loss_gap}, "
                              f"parameter gap {param_gap}")
     return line
+
+
+# -- phase 17: the mobile trunks under Faster R-CNN ---------------------------
+
+def random_norms(torch, net, seed):
+    """Every norm of ``net`` drawn near the identity (weight and running
+    variance in [0.8, 1.25], bias and running mean about 0.05), as a
+    trained model's would be: identity norms leave MobileNetV3's taps
+    vanishing and its scores tied."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in net.modules():
+            if hasattr(mod, "running_var"):
+                for name, draw in (("weight", "u"), ("running_var", "u"),
+                                   ("bias", "n"), ("running_mean", "n")):
+                    x = getattr(mod, name)
+                    x.copy_(torch.from_numpy(
+                        rng.uniform(0.8, 1.25, tuple(x.shape)) if draw == "u"
+                        else rng.normal(0, 0.05, tuple(x.shape))).float())
+    return net
+
+
+@contextlib.contextmanager
+def norm_outputs(torch, net, record=None, force=None):
+    """Each trainable norm's output recorded into ``record`` (by module
+    name) or, from ``force``, replaced by the recorded value through a
+    straight-through correction (its own value plus the detached
+    difference: the gradient takes the norm's own path).  Yields each
+    forced norm's largest correction over its output's largest."""
+    from podtpu_torch.models.resnet import BatchNorm2d
+
+    gaps, hooks = {}, []
+
+    def hook(name):
+        def run(mod, inputs, out):
+            if force is None:
+                record[name] = out.detach().cpu()
+                return out
+            gap = (force[name].to(out.device) - out).detach()
+            gaps[name] = float(gap.abs().max()
+                               / force[name].abs().max().clamp(min=1e-30))
+            return out + gap
+        return run
+
+    for name, mod in net.named_modules():
+        if isinstance(mod, BatchNorm2d):
+            hooks.append(mod.register_forward_hook(hook(name)))
+    try:
+        yield gaps
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def detection_gaps(torch, got, want):
+    """Valid slots, labels, boxes and scores of ``got`` against
+    ``want``."""
+    return {"detections": int(want.valid.sum()),
+            "same_valid": torch.equal(got.valid.cpu(), want.valid),
+            "same_labels": torch.equal(got.labels.cpu(), want.labels),
+            "box_max_abs_err": float((got.boxes.cpu()
+                                      - want.boxes).abs().max()),
+            "score_max_abs_err": float((got.scores.cpu()
+                                        - want.scores).abs().max())}
+
+
+def detections_held(r):
+    return (r["same_valid"] and r["same_labels"] and r["detections"] > 0
+            and r["box_max_abs_err"] <= 1e-3 and r["score_max_abs_err"] <= 1e-4)
+
+
+def check_mobile_reference(torch, dev, model):
+    """A small float32 mobile detector (``model`` in ``MOBILE``, 128^2,
+    trainable norms with random values) on the card against the same
+    weights on the CPU, TF32 off: the eval forward (as
+    ``check_reference``); one train step's losses, gradients, updated
+    parameters and the norms' running statistics; then the eval forward
+    of the new state.  The card's step is teacher-forced norm by norm to
+    the CPU's outputs (``norm_outputs``): with batch statistics float32
+    rounding grows about 1.06x a norm, and after MobileNetV2's 52 norms the
+    two runs would part by about 4e-5, enough to flip ReLUs and move
+    gradient entries by percents; each correction is held under 1e-4 of
+    its output's largest (one norm's rounding on either device).  Losses,
+    gradients and parameters are held to ``check_train_reference``'s
+    limits against the CPU, running statistics within 1e-5 of their
+    largest (at least 1); a gradient whose CPU value is under 1e-6 (a
+    bias every path of which runs into a training norm's mean: exactly
+    0) is held under 1e-6 on both.  The eval forward before the step runs
+    copies whose class logits' kernel is scaled by 30 (random heads score
+    every class near 0.25, within 1e-5 of each other), and seeds whose
+    scores still nearly tie are passed over; after the step (whose
+    background gradient such a scale would blow up) the eval forward's
+    features, which read the new running statistics, are held within
+    1e-4 of their largest."""
+    from podtpu_torch.core.config import Config, DataConfig
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.train.optim import make_optimizer
+    from podtpu_torch.train.step import draw_train, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg = dataclasses.replace(model_config(
+        model, image_size=(128, 128), rpn_pre_nms_topk_train=128,
+        rpn_post_nms_topk_train=128, rpn_pre_nms_topk_test=128,
+        rpn_post_nms_topk_test=64, box_batch_per_image=32, max_gt_boxes=8,
+        compute_dtype="float32", num_classes=4), detections_per_image=16)
+    cfg = Config(model=mcfg, data=DataConfig())
+
+    def tied(det):
+        s = det.scores[det.valid].sort().values
+        return s.numel() > 1 and float(s.diff().min()) < 1e-5
+
+    def evaluate(net, img):
+        """Detections of a copy whose class logits' kernel is scaled by
+        30: random heads score every class near 0.25, within 1e-5 of each
+        other."""
+        net = copy.deepcopy(net)
+        with torch.inference_mode():
+            net.roi_heads.box_predictor.cls_score.weight.mul_(30.0)
+            return net(torch.from_numpy(img).to(
+                next(net.parameters()).device))
+
+    try:
+        for seed in range(SEED, SEED + 5):
+            cpu = make_detector(mcfg)
+            init_parameters(cpu, torch.Generator().manual_seed(seed))
+            cpu = random_norms(torch, cpu, seed).to(
+                memory_format=torch.channels_last)
+            gpu = copy.deepcopy(cpu).to(dev)
+            rng = np.random.default_rng(seed)
+            img = rng.integers(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+            want = evaluate(cpu, img)
+            if tied(want):
+                continue
+            rec = {"phase": "mobile_reference", "model": model_title(model),
+                   "seed": seed, "eval": detection_gaps(
+                       torch, evaluate(gpu, img), want)}
+            batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+                rng, 2, (128, 128), 8, n_gt=(1, 8), side=(8, 48)).items()}
+            draws = draw_train(torch.Generator().manual_seed(seed), cfg,
+                               batch)
+            outs, steps = {}, {}
+            for name, net, device in (("cpu", cpu, "cpu"),
+                                      ("card", gpu, dev)):
+                step = make_train_step(net, make_optimizer(cfg.train, net),
+                                       cfg, device=device)
+                with norm_outputs(torch, net, record=outs,
+                                  force=None if name == "cpu" else outs
+                                  ) as gaps:
+                    steps[name] = {k: float(v) for k, v in step(
+                        batch, 0.005, draws=move(draws, device)).items()}
+            sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
+            grads = {n: (p.grad, dict(gpu.named_parameters())[n].grad.cpu())
+                     for n, p in cpu.named_parameters()}
+            zero = {n for n, (g, _) in grads.items()
+                    if float(g.abs().max()) < 1e-6}
+            stats = [k for k in sd_c if k.endswith(("running_mean",
+                                                    "running_var"))]
+            rec["train"] = {
+                "norms_forced": len(gaps),
+                "norm_correction_max": max(gaps.values()),
+                "loss_max_rel_err": max(
+                    abs(steps["card"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in steps["cpu"].items() if k != "lr"),
+                "grad_max_err_over_tensor_max": max(
+                    (float((g2 - g).abs().max() / g.abs().max()), n)
+                    for n, (g, g2) in grads.items() if n not in zero),
+                "grad_max_rel_l2_err": max(
+                    (float((g2 - g).norm() / g.norm()), n)
+                    for n, (g, g2) in grads.items() if n not in zero),
+                "zero_gradients": len(zero),
+                "zero_gradient_max_abs": max(
+                    [float(g2.abs().max()) for n, (g, g2) in grads.items()
+                     if n in zero], default=0.0),
+                "param_max_abs_err": max(
+                    float((sd_g[n].cpu() - p.detach()).abs().max())
+                    for n, p in cpu.named_parameters()),
+                "running_stat_max_err": max(
+                    float((sd_g[k].cpu() - sd_c[k]).abs().max())
+                    / max(1.0, float(sd_c[k].abs().max())) for k in stats),
+                "running_stats": len(stats),
+                "steps_tracked": int(sd_g[next(
+                    k for k in sd_g if k.endswith("num_batches_tracked"))]),
+                "finite": all(np.isfinite(v) for v in steps["card"].values())}
+            # The eval forward after the step reads the running statistics
+            # it wrote: the features of both runs.
+            img2 = torch.from_numpy(rng.integers(
+                0, 256, (2, 128, 128, 3)).astype(np.uint8))
+            with torch.inference_mode():
+                want2 = cpu.features(img2)
+                got2 = gpu.features(img2.to(dev))
+            rec["eval_after_step"] = {
+                "feature_max_err_over_max": max(
+                    float((g.cpu() - w).abs().max() / w.abs().max())
+                    for g, w in zip(got2, want2)),
+                "levels": len(want2)}
+            emit(rec)
+            t = rec["train"]
+            if not (detections_held(rec["eval"])
+                    and rec["eval_after_step"]["feature_max_err_over_max"]
+                    <= 1e-4
+                    and t["finite"] and t["norm_correction_max"] <= 1e-4
+                    and t["norms_forced"] == len(stats) // 2
+                    and t["loss_max_rel_err"] <= 1e-4
+                    and t["grad_max_rel_l2_err"][0] <= 3e-2
+                    and t["grad_max_err_over_tensor_max"][0] <= 1.5e-1
+                    and t["zero_gradient_max_abs"] <= 1e-6
+                    and t["param_max_abs_err"] <= 2.5e-5
+                    and t["running_stat_max_err"] <= 1e-5
+                    and t["steps_tracked"] == 1):
+                raise AssertionError(f"mobile_reference {model}: {rec}")
+            return rec
+        raise AssertionError("no seed without near-tied scores")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def mobile_driver_phase(torch, card, dev, captured, roi_captured,
+                        config=None, size=(1024, 1024), n_images=24,
+                        n_infer=8):
+    """``train(backbone="mobilenet_v3_fpn")`` from scratch at the
+    ``Config()`` defaults on the driver phase's 24 in-memory images for 2
+    epochs: its printout must switch the trunk to trainable BatchNorm (the
+    JAX package's line) and the stored config must say
+    ``backbone_norm="batch"``.  Then ``evaluate_model`` on its 4 test
+    images (one batch's K2 inputs into ``roi_captured``), ``infer`` at the
+    median of the best scores, which must keep boxes (its K1 calls into
+    ``captured``), and one ``DetectionServer`` batch.  K3 once per step,
+    K1 and K2 at least once per step and eval batch.  Returns the launches
+    by path."""
+    import io
+
+    from podtpu_torch.core.config import Config
+    from podtpu_torch.data import imageio
+    from podtpu_torch.train import train as driver
+
+    images, project, test_project, test_idx, infer_project, infer_metas = \
+        driver_inputs(size, n_images, n_infer)
+    config = config or Config()
+    tmp = tempfile.mkdtemp(prefix="podtpu_mobile_")
+    read_rgb = imageio.read_rgb
+    imageio.read_rgb = images.__getitem__
+    log = io.StringIO()
+
+    def logged_train(*args, **kwargs):
+        with contextlib.redirect_stdout(log):
+            return driver.train(*args, **kwargs)
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, launches, rec, seconds = driven(
+            torch, driver, logged_train, project, output_dir=tmp,
+            name="mobile", batch_size=2, seed=0, config=config, device=dev,
+            max_epochs=2, backbone="mobilenet_v3_fpn")
+        sys.stderr.write(log.getvalue())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        eval_out = []
+        eval_roi = capture_roi_align(lambda: eval_out.append(driven(
+            torch, driver, driver.evaluate_model, test_project, model_dir,
+            batch_size=2, device=dev)), limit=1)
+        stats, evaluated, _, eval_s = eval_out[0]
+        inf = infer_and_serve(torch, driver, dev, model_dir, images,
+                              infer_project, infer_metas)
+    finally:
+        imageio.read_rgb = read_rgb
+        shutil.rmtree(tmp, ignore_errors=True)
+    switched = ("No pretrained weights: mobile trunk uses trainable "
+                "BatchNorm (torchvision's from-scratch norm rule)"
+                in log.getvalue())
+    steps = sum(e["steps"] for e in rec["epochs"])
+    eval_batches = sum(e["eval_batches"] for e in rec["epochs"])
+    kept = sum(len(b) for b in kept_boxes(inf["result"], infer_metas))
+    served_dets = sum(len(r["detections"]) for r in inf["served"])
+    stored = inf["stored"]
+    stored_fields = {k: getattr(stored, k) for k in (
+        "backbone", "backbone_norm", "trainable_backbone_stages",
+        "strides")}
+    emit({"phase": "mobilenet_v3_fpn_driver",
+          "model": model_title("mobilenet_v3_fpn"), "image_size": list(size),
+          "images": n_images, "switched_to_batch_norm": switched,
+          "stored_config": stored_fields, "batch_size": 2,
+          "epochs": epoch_lines(rec, 2), "steps": steps,
+          "train_call_s": seconds,
+          **dispatch_record("mobilenet_v3_fpn_driver",
+                            [e["loss"] for e in rec["epochs"]], rec),
+          "evaluate_model_s": eval_s, "evaluate_model_stats": stats,
+          "best_threshold": inf["threshold"], "infer_s": inf["seconds"],
+          "infer_kept_boxes": kept, "served_detections": served_dets,
+          "launches": {"train": launches, "evaluate_model": evaluated,
+                       "infer": inf["launches"]},
+          "peak_memory_gib": peak, "card": card})
+    bad = []
+    if not switched:
+        bad.append("no switch to trainable BatchNorm printed")
+    if stored_fields != dict(backbone="mobilenet_v3_fpn",
+                             backbone_norm="batch",
+                             trainable_backbone_stages=5,
+                             strides=(32, 32, 64)):
+        bad.append(f"stored config {stored_fields}")
+    if not all(np.isfinite(float(v)) for v in rec["step_losses"]):
+        bad.append("a train loss is not finite")
+    if len(stats) != 12 or not all(-1 <= v <= 1 for v in stats):
+        bad.append(f"stats {stats}")
+    if not kept or not served_dets:
+        bad.append(f"infer kept {kept} boxes, the server returned "
+                   f"{served_dets} at the median best score")
+    if len(eval_roi) != 1:
+        bad.append(f"{len(eval_roi)} K2 calls captured in evaluate_model")
+    if bad:
+        raise AssertionError(f"mobile driver: {bad}")
+    check_driver_launches("mobilenet_v3_fpn_driver", launches, steps,
+                          eval_batches)
+    check_driver_launches("mobilenet_v3_fpn_evaluate_model", evaluated, 0,
+                          -(-len(test_idx) // 2))
+    captured.append(("mobilenet_v3_fpn_infer", inf["calls"]))
+    roi_captured.append(("mobilenet_v3_fpn_evaluate_model", eval_roi))
+    return {"mobilenet_v3_fpn_driver": launches,
+            "mobilenet_v3_fpn_evaluate_model": evaluated,
+            "mobilenet_v3_fpn_infer": inf["launches"]}
+
+
+def mobile_phases(torch, card, dev, captured):
+    """Phase 17: ``mobile_reference`` for MobileNetV2 and the V3 FPN; the
+    three serving slices (K1 and K2 inputs of one batch each captured);
+    streamed training of MobileNetV2 and the V3 FPN, each step's K2 and K3
+    calls captured, each beside its cached cell (a replay held to the bit
+    against 8 eager steps, running statistics included); the V3 FPN's
+    driver.  Returns the launches by path, the K2 and K3 captures at 7
+    and the cached cells."""
+    from podtpu_torch.ops import nms
+
+    for model in ("mobilenet_v2", "mobilenet_v3_fpn"):
+        check_mobile_reference(torch, dev, model)
+    paths = {}
+    k2, k3 = [], {"k2": [], "k3": []}
+    for model in MOBILE:
+        paths[phase_name(model, "serve")] = serve_slice(
+            torch, card, dev, model_config(model, num_classes=4), captured,
+            model=model, roi_captured=k2)
+    cached = {}
+    for model in ("mobilenet_v2", "mobilenet_v3_fpn"):
+        streamed = train_slice(torch, card, dev, model=model, timed=10)
+        capture_step(streamed["replay"], 7, k3, phase_name(model, "train"))
+        captured.append((phase_name(model, "train"),
+                         capture_nms(nms, streamed.pop("replay"))))
+        paths[phase_name(model, "train")] = streamed["launches"]
+        cached[model] = cached_train_slice(
+            torch, card, dev, model, timed=3,
+            streamed_images_per_s=streamed["images_per_s"])
+        del streamed
+    paths.update(mobile_driver_phase(torch, card, dev, captured, k2))
+    return paths, k2 + k3["k2"], k3["k3"], cached
+
 
 
 def main() -> int:
@@ -4593,6 +4999,10 @@ def main() -> int:
     # Phase 15c: the crop classifier.
     check_classifier_reference(torch, "cuda")
     classifier_phase(torch, card, "cuda")
+    # Phase 17: the mobile trunks.
+    mobile, mobile_k2, mobile_k3, mobile_cached = mobile_phases(
+        torch, card, "cuda", captured)
+    cached.update(mobile_cached)
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)] + tiled_out["nms"]
     k1 = check_nms_main_path(torch, nms, captured)
@@ -4610,6 +5020,8 @@ def main() -> int:
     k3_7 = dict(zip((p for p, _ in v2_captured["k3"]),
                     check_roi_align_bwd_main_path(torch, roi_align,
                                                   v2_captured["k3"])))
+    k2_mobile = check_roi_align_main_path(torch, roi_align, mobile_k2)
+    k3_mobile = check_roi_align_bwd_main_path(torch, roi_align, mobile_k3)
     if not k2_14["keypoint_train_expand"]["rois_crossing_canvas"] > 0:
         raise AssertionError("no RoI of the keypoint step at "
                              "keypoint_roi_expand 1.3 crosses the canvas")
@@ -4633,6 +5045,7 @@ def main() -> int:
                    **{k: v[name] for k, v in v2_driver.items()},
                    **{k: v.get(name, 0) for k, v in one_stage.items()},
                    **{k: v[name] for k, v in tiled_out["launches"].items()},
+                   **{k: v.get(name, 0) for k, v in mobile.items()},
                    # The cached_train phases' timed replays.
                    **{f"{m}_cached_train": r["launches"][name]
                       for m, r in cached.items()}}
@@ -4673,7 +5086,18 @@ def main() -> int:
                  "valid_per_segment": r["valid_per_segment"],
                  "kept_per_segment": r["kept_per_segment"]}
                  for (path, k), r in k1.items()
-                 if path.startswith("tiled")}),
+                 if path.startswith("tiled")},
+             # The mobile paths: their RPN's one segment an image and level
+             # (one for MobileNetV2, three for the V3 FPN) and the
+             # postprocess, each call as the path made it.
+             mobile={f"{path}_call{k}": {
+                 "shape": r["shape"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "valid_per_segment": r["valid_per_segment"],
+                 "kept_per_segment": r["kept_per_segment"]}
+                 for (path, k), r in k1.items()
+                 if path.startswith("mobilenet")}),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",
@@ -4692,7 +5116,13 @@ def main() -> int:
              tiled={r["case"]: at(r) | {"shape": r["shape"],
                                         "plain_ms": r["plain_ms"],
                                         "bound_by": r["bound_by"]}
-                    for r in k2_tiled if r["case"].startswith("tiled")}),
+                    for r in k2_tiled if r["case"].startswith("tiled")},
+             # One level of 1280 (MobileNetV2) or 256 channels (the V3
+             # FPN's first level; 10x10 at 320^2).
+             mobile={r["case"]: at(r) | {"shape": r["shape"],
+                                         "plain_ms": r["plain_ms"],
+                                         "bound_by": r["bound_by"]}
+                     for r in k2_mobile}),
         dict(name="roi_align_bwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:226",
@@ -4704,7 +5134,11 @@ def main() -> int:
                                    **{p: at(r) for p, r in k3_7.items()}},
                              "14": {**at(k3_14["mask_train"]),
                                     **{p: at(r) for p, r in k3_14.items()
-                                       if p != "mask_train"}}}),
+                                       if p != "mask_train"}}},
+             mobile={r["case"]: at(r) | {"grad_shape": r["grad_shape"],
+                                         "plain_ms": r["plain_ms"],
+                                         "bound_by": r["bound_by"]}
+                     for r in k3_mobile}),
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

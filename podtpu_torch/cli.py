@@ -176,8 +176,9 @@ def build_parser() -> argparse.ArgumentParser:
           help="Data-parallel device count (one GPU: ROADMAP.md item 18)")
     c.opt("--backbone", choices=["resnet50_fpn", "mobilenet_v2",
                                  "mobilenet_v3_fpn", "mobilenet_v3_320_fpn"],
-          help="Backbone: ResNet-50-FPN (default); the MobileNet trunks "
-               "wait for ROADMAP.md item 14")
+          help="Backbone: ResNet-50-FPN (default), MobileNetV2 (one "
+               "stride-32 map), MobileNetV3-Large-FPN or its 320x320 recipe; "
+               "from scratch a mobile trunk trains its BatchNorm")
     c.opt("--family", choices=["faster_rcnn", "faster_rcnn_v2", "retinanet",
                                "retinanet_v2", "fcos", "ssd", "ssdlite"],
           default="faster_rcnn",

@@ -4,10 +4,12 @@ Field-for-field copies of ``podtpu.core.config``'s ``ModelConfig``,
 ``TrainConfig``, ``DataConfig``, ``CvatConfig`` and ``Config``, so that a
 configuration written by either package loads in the other.  The port
 builds the ``faster_rcnn`` family on ``resnet50_fpn``, v1 and the v2
-recipe (:func:`fasterrcnn_v2_config`), and the one-stage ``retinanet``
-(v1 and :func:`retinanet_v2_config`) and ``fcos`` families, so far
-(``models.detector.make_detector`` refuses the rest); the other fields are
-carried so that saved configurations round-trip unchanged.
+recipe (:func:`fasterrcnn_v2_config`), and on the mobile trunks
+(:func:`mobilenet_config`, :func:`mobilenet_v3_fpn_config`), and the
+one-stage ``retinanet`` (v1 and :func:`retinanet_v2_config`) and ``fcos``
+families, so far (``models.detector.make_detector`` refuses SSD); the
+other fields are carried so that saved configurations round-trip
+unchanged.
 """
 from __future__ import annotations
 
@@ -29,9 +31,14 @@ class ModelConfig:
     pixel_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
 
     family: str = "faster_rcnn"
+    # "resnet50_fpn", "mobilenet_v2" (one stride-32 map of 1280 channels)
+    # or "mobilenet_v3_fpn" (two stride-32 taps into a two-level FPN).
     backbone: str = "resnet50_fpn"
     backbone_depth: int = 50
     trainable_backbone_stages: int = 3
+    # "frozen" (FrozenBatchNorm2d) or "batch" (trainable BatchNorm with
+    # running statistics: the mobile trunks' from-scratch norm; a ResNet
+    # trunk keeps its frozen norms under either).
     backbone_norm: str = "frozen"
     fpn_channels: int = 256
     stem_space_to_depth: bool = False
@@ -137,8 +144,10 @@ class ModelConfig:
 
     @property
     def roi_strides(self) -> Tuple[int, ...]:
-        """Strides of the levels feeding the RoI heads (P2..P5 on the FPN
-        model; P6 is RPN-only)."""
+        """Strides of the levels feeding the RoI heads: P2..P5 on the
+        ResNet FPN (P6 is RPN-only), the first of the MobileNetV3 FPN's two
+        stride-32 levels (torchvision's level mapper collapses to it), the
+        one map of MobileNetV2."""
         if self.backbone == "resnet50_fpn":
             return tuple(self.strides[:4])
         if self.backbone == "mobilenet_v3_fpn":
@@ -154,6 +163,36 @@ def fasterrcnn_v2_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
     mask tower; ``kw`` overrides any field."""
     fields = dict(rpn_conv_depth=2, box_head_type="convfc", fpn_norm=True,
                   mask_head_norm=True)
+    fields.update(kw)
+    return dataclasses.replace(cfg or ModelConfig(), **fields)
+
+
+def mobilenet_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` (``ModelConfig()`` when None) as the reference's MobileNetV2
+    Faster R-CNN: one stride-32 map, 5 sizes x 3 ratios a location, RoIs
+    pooled from that map; ``kw`` overrides any field."""
+    return dataclasses.replace(
+        cfg or ModelConfig(), backbone="mobilenet_v2", strides=(32,),
+        anchor_sizes=((32.0, 64.0, 128.0, 256.0, 512.0),),
+        use_pallas_roi_align=False, **kw)
+
+
+def mobilenet_v3_fpn_config(cfg: "ModelConfig" = None, low_res: bool = False,
+                            **kw) -> "ModelConfig":
+    """``cfg`` as torchvision's ``fasterrcnn_mobilenet_v3_large_fpn`` (with
+    ``low_res``, ``..._320_fpn``): the MobileNetV3-Large trunk tapped at
+    ``features[13]`` (160 channels) and its last conv (960), both at stride
+    32, a two-level FPN and its stride-2 subsample as the third RPN level,
+    15 anchors a location on each, RoIs pooled from the first level.  The
+    320 recipe also takes a 320x320 canvas, 150 proposals before and after
+    the test-time NMS and an objectness floor of 0.05; ``kw`` overrides any
+    field."""
+    fields = dict(backbone="mobilenet_v3_fpn", strides=(32, 32, 64),
+                  anchor_sizes=((32.0, 64.0, 128.0, 256.0, 512.0),) * 3,
+                  anchor_ratios=(0.5, 1.0, 2.0), use_pallas_roi_align=False)
+    if low_res:
+        fields.update(image_size=(320, 320), rpn_pre_nms_topk_test=150,
+                      rpn_post_nms_topk_test=150, rpn_score_thresh=0.05)
     fields.update(kw)
     return dataclasses.replace(cfg or ModelConfig(), **fields)
 

@@ -27,8 +27,7 @@ from podtpu_torch.ops import image_ops as T
 AugmentFn = Callable
 
 # Policy -> the ROADMAP.md item that brings it.
-NOT_PORTED = {"ssd": "item 14: SSD and the mobile trunks",
-              "ssdlite": "item 14: SSD and the mobile trunks"}
+NOT_PORTED = {"ssd": "item 14: SSD", "ssdlite": "item 14: SSD"}
 
 # The scale range of each scale-jitter policy (the JAX package's
 # ``T.scale_jitter`` ranges).

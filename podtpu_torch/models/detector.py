@@ -1,13 +1,15 @@
-"""Faster R-CNN, Mask R-CNN and Keypoint R-CNN ResNet-50-FPN: eval forward
-and training losses; and ``make_detector``, which also builds the
-one-stage families (``models/retinanet.py``, ``models/fcos.py``).
+"""Faster R-CNN, Mask R-CNN and Keypoint R-CNN: eval forward and training
+losses; and ``make_detector``, which also builds the one-stage families
+(``models/retinanet.py``, ``models/fcos.py``).
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
 ``resnet50_fpn`` backbone with the MLP box head or, in the v2 recipe
 (``core.config.fasterrcnn_v2_config``), the normed FPN, the 2-deep RPN
-tower and the ConvFC box head; with ``with_mask`` the mask head (normed in
-v2) or, with ``with_keypoints``, the keypoint head; and
-``make_detector``).
+tower and the ConvFC box head; on the ``mobilenet_v2`` trunk, whose one
+1280-channel map feeds the RPN and the RoI heads without an FPN, or the
+``mobilenet_v3_fpn`` trunk and its two-level FPN; with ``with_mask`` the
+mask head (normed in v2) or, with ``with_keypoints``, the keypoint head;
+and ``make_detector``).
 The forward takes ``[B, H, W, 3]`` images (uint8, or float in [0, 1]) like
 the JAX model, normalises them in float32 (``models.fpn.PyramidDetector``;
 ``features`` gives P2..P6) and runs the network on NCHW tensors in
@@ -36,44 +38,69 @@ import torch
 from torch import nn
 
 from podtpu_torch.core.config import ModelConfig
+from podtpu_torch.models import mobilenet, mobilenet_v3
 from podtpu_torch.models import roi_heads as rh
 from podtpu_torch.models import rpn as rpn_lib
 from podtpu_torch.models.fcos import FCOS
 from podtpu_torch.models.fpn import (BackboneWithFPN, FeaturePyramidNetwork,
                                      PyramidDetector)
-from podtpu_torch.models.resnet import (FrozenBatchNorm2d, ResNet,
-                                        variance_scaling_)
+from podtpu_torch.models.resnet import (BatchNorm2d, FrozenBatchNorm2d,
+                                        ResNet, variance_scaling_)
 from podtpu_torch.models.retinanet import DTYPES, PRIOR_BIAS, RetinaNet
 from podtpu_torch.ops.anchors import grid_anchors
+
+
+# Levels of each two-stage trunk's pyramid (RPN levels).
+PYRAMID_LEVELS = {"resnet50_fpn": 5, "mobilenet_v2": 1,
+                  "mobilenet_v3_fpn": 3}
+
+
+def make_backbone(cfg: ModelConfig, dt: torch.dtype):
+    """``(backbone, channels)``: the trunk of ``cfg.backbone`` (with its FPN
+    where it has one) and the width of the maps the heads read.  The mobile
+    trunks' norms train with ``backbone_norm="batch"``; ResNet's stay
+    frozen under either, as in the JAX package."""
+    stages = cfg.trainable_backbone_stages
+    batch = cfg.backbone_norm == "batch"
+    if cfg.backbone == "mobilenet_v2":
+        return (mobilenet.MobileNetV2(dt, stages, batch),
+                mobilenet.OUT_CHANNELS)
+    if cfg.backbone == "mobilenet_v3_fpn":
+        body = mobilenet_v3.MobileNetV3Body(dt, stages, batch)
+        fpn = FeaturePyramidNetwork(mobilenet_v3.FPN_IN_CHANNELS,
+                                    cfg.fpn_channels, compute_dtype=dt)
+        return BackboneWithFPN(body, fpn), cfg.fpn_channels
+    return BackboneWithFPN(
+        ResNet((3, 4, 6, 3), compute_dtype=dt, trainable_stages=stages),
+        FeaturePyramidNetwork((256, 512, 1024, 2048), cfg.fpn_channels,
+                              compute_dtype=dt, norm=cfg.fpn_norm)
+    ), cfg.fpn_channels
 
 
 class FasterRCNN(PyramidDetector):
     def __init__(self, cfg: ModelConfig):
         dt = DTYPES[cfg.compute_dtype]
-        super().__init__(cfg, BackboneWithFPN(
-            ResNet((3, 4, 6, 3), compute_dtype=dt,
-                   trainable_stages=cfg.trainable_backbone_stages),
-            FeaturePyramidNetwork((256, 512, 1024, 2048), cfg.fpn_channels,
-                                  compute_dtype=dt, norm=cfg.fpn_norm)))
+        backbone, channels = make_backbone(cfg, dt)
+        super().__init__(cfg, backbone)
         anchors = grid_anchors(tuple(cfg.image_size), tuple(cfg.strides),
                                tuple(cfg.anchor_sizes),
                                tuple(cfg.anchor_ratios))
         self.rpn = rpn_lib.RegionProposalNetwork(
-            rpn_lib.RPNHead(cfg.fpn_channels, cfg.anchors_per_location,
+            rpn_lib.RPNHead(channels, cfg.anchors_per_location,
                             compute_dtype=dt, conv_depth=cfg.rpn_conv_depth),
             anchors)
         box_kw = dict(compute_dtype=dt, box_head_type=cfg.box_head_type)
         if cfg.with_mask:
             self.roi_heads = rh.BoxMaskHead(
-                cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
+                channels, cfg.roi_pool_size, cfg.num_classes,
                 cfg.mask_head_channels, mask_norm=cfg.mask_head_norm,
                 **box_kw)
         elif cfg.with_keypoints:
             self.roi_heads = rh.BoxKeypointHead(
-                cfg.fpn_channels, cfg.roi_pool_size, cfg.num_classes,
+                channels, cfg.roi_pool_size, cfg.num_classes,
                 cfg.num_keypoints, cfg.keypoint_head_channels, **box_kw)
         else:
-            self.roi_heads = rh.BoxHead(cfg.fpn_channels, cfg.roi_pool_size,
+            self.roi_heads = rh.BoxHead(channels, cfg.roi_pool_size,
                                         cfg.num_classes, **box_kw)
 
     def forward(self, images: torch.Tensor, gt: Optional[Dict] = None,
@@ -246,18 +273,23 @@ def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.family not in ("faster_rcnn",) + ONE_STAGE:
-        return (f"family={cfg.family!r} (ROADMAP.md, item 14: SSD and the "
-                "mobile trunks)")
-    if cfg.backbone != "resnet50_fpn":
+        return (f"family={cfg.family!r} (ROADMAP.md, item 14: SSD and its "
+                "MobileNetV3 trunk)")
+    if cfg.backbone not in PYRAMID_LEVELS:
         return (f"backbone={cfg.backbone!r} (ROADMAP.md, item 14: SSD and "
-                "the mobile trunks)")
-    if cfg.backbone_norm != "frozen":
-        return (f"backbone_norm={cfg.backbone_norm!r} (ROADMAP.md, item 14: "
-                "trainable BatchNorm comes with the mobile trunks)")
-    if cfg.family == "faster_rcnn" and (
+                "its MobileNetV3 trunk)")
+    if cfg.family == "faster_rcnn" and cfg.backbone == "resnet50_fpn" and (
             cfg.anchors_per_location != len(cfg.anchor_ratios)
             or len(cfg.strides) != 5):
         return "anchor layouts other than one size per P2..P6 level"
+    if cfg.family == "faster_rcnn" and cfg.backbone != "resnet50_fpn" and (
+            len(cfg.strides) != PYRAMID_LEVELS[cfg.backbone]
+            or len(cfg.anchor_sizes) != len(cfg.strides)
+            or any(not isinstance(s, (tuple, list))
+                   or len(s) != len(cfg.anchor_sizes[0])
+                   for s in cfg.anchor_sizes)):
+        return (f"anchor layouts of {cfg.backbone} other than one tuple of "
+                "sizes, the same for every level, per level of its pyramid")
     if cfg.family in ONE_STAGE and len(cfg.strides) != 5:
         return "one-stage pyramids other than P3..P7"
     return None
@@ -299,9 +331,11 @@ def make_detector(cfg: ModelConfig) -> nn.Module:
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Initialise as flax does: ``lecun_normal`` convs and dense layers,
-    ``variance_scaling(2, fan_out)`` for the stem, zero biases, identity
-    frozen BatchNorm; a one-stage head's convs ``normal(0.01)``, its
+    """Initialise as flax does: ``lecun_normal`` convs and dense layers
+    (the mobile trunks' stems, depthwise and squeeze-excitation convs too),
+    ``variance_scaling(2, fan_out)`` for the ResNet stem, zero biases,
+    identity frozen and trainable BatchNorm (running statistics zeros and
+    ones); a one-stage head's convs ``normal(0.01)``, its
     ``cls_logits`` bias at the prior ``-log(99)`` and its GroupNorms at
     ones and zeros.  Draws come from ``generator`` (a CPU generator; the
     model must be on the CPU)."""
@@ -326,9 +360,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                               "fan_out" if stem else "fan_in", generator)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
-        elif isinstance(mod, FrozenBatchNorm2d):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-            mod.running_mean.zero_()
-            mod.running_var.fill_(1.0)
+        elif isinstance(mod, (FrozenBatchNorm2d, BatchNorm2d)):
+            with torch.no_grad():
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
 

@@ -94,7 +94,8 @@ class FeaturePyramidNetwork(nn.Module):
 
 class PyramidDetector(nn.Module):
     """Base of the port's detectors: ``cfg`` and ``backbone`` (a
-    :class:`BackboneWithFPN`), whose :meth:`features` takes ``[B, H, W,
+    :class:`BackboneWithFPN`, or MobileNetV2's trunk, which gives its one
+    map itself), whose :meth:`features` takes ``[B, H, W,
     3]`` images (uint8, or float in [0, 1]) and normalises them in float32
     by ``cfg``'s pixel mean and std, as the JAX models' ``_features``."""
 

@@ -17,8 +17,9 @@ layer2, layer3, layer4] that train: the others' parameters have
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Optional
+from typing import Iterator, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +60,78 @@ class FrozenBatchNorm2d(nn.Module):
         shift = self.bias - self.running_mean * scale
         return (x * scale.to(x.dtype).view(1, -1, 1, 1)
                 + shift.to(x.dtype).view(1, -1, 1, 1))
+
+
+class BatchNorm2d(nn.Module):
+    """Trainable BatchNorm, the counterpart of the JAX package's
+    ``FrozenBatchNorm(trainable=True)``: ``weight`` and ``bias`` are
+    parameters; ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` are buffers, so torchvision's ``BatchNorm2d``
+    state dict loads.
+
+    With ``batch_stats`` set (:func:`batch_statistics`, which the train
+    step holds around its forward, as the JAX step marks the ``frozen``
+    collection mutable) the norm takes the float32 mean and the variance
+    (the mean of squared deviations, ``jnp.var``) of its input over batch
+    and space, and moves the running averages in place by ``momentum``
+    towards the mean and the unbiased variance.  Otherwise it reads the
+    running averages.  Either way ``(x - m) * rsqrt(v + eps) * weight +
+    bias`` is computed in float32 and cast once to the input's dtype.  The
+    mode is not ``nn.Module.training``, which no entry point sets."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.batch_stats = False
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.batch_stats:
+            m = xf.mean((0, 2, 3))
+            d = xf - m.view(1, -1, 1, 1)
+            v = (d * d).mean((0, 2, 3))
+            n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+            with torch.no_grad():
+                # In place: a captured step writes the same storage.
+                mo = self.momentum
+                self.running_mean.mul_(1 - mo).add_(mo * m)
+                self.running_var.mul_(1 - mo).add_(
+                    mo * (v * (n / max(n - 1, 1))))
+                self.num_batches_tracked.add_(1)
+        else:
+            m, v = self.running_mean, self.running_var
+            d = xf - m.view(1, -1, 1, 1)
+        y = (d * torch.rsqrt(v + self.eps).view(1, -1, 1, 1)
+             * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1))
+        return y.to(x.dtype)
+
+
+def norm_layer(batch: bool):
+    """The trunk's norm: :class:`BatchNorm2d` with ``batch``, else
+    :class:`FrozenBatchNorm2d`."""
+    return BatchNorm2d if batch else FrozenBatchNorm2d
+
+
+@contextlib.contextmanager
+def batch_statistics(model: nn.Module) -> Iterator[None]:
+    """Within the block, every :class:`BatchNorm2d` of ``model`` normalises
+    by its batch's statistics and moves its running averages."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.batch_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.batch_stats = False
 
 
 class Bottleneck(nn.Module):

@@ -25,6 +25,16 @@ ConvFC box head ``box_head.{i}.{0,1}`` (``box_head/conv{i+1}``,
 ``bn{i+1}``) and its Linear ``box_head.5`` (``box_head/fc``, permuted as
 fc6), and the normed mask tower ``mask_head.{i}.{0,1}``.
 
+The mobile trunks follow ``mobilenet_v2_key_map`` (the port's
+``backbone.{i}``, torchvision's ``features.{i}``; flax ``backbone/stem``,
+``block{i}/{expand,dw,project}``, ``head`` and their ``bn_*``) and
+``fasterrcnn_mobilenet_v3_key_map`` (``backbone.body.{i}.block.{j}``, the
+squeeze-excitation's ``se_fc1``/``se_fc2``, the FPN's ``lateral0..1`` and
+``post0..1``).  A trainable BatchNorm (``backbone_norm="batch"``) keeps
+``weight``/``bias`` in flax ``params`` and ``mean``/``var`` in ``frozen``;
+its ``num_batches_tracked`` has no flax counterpart: 0 on the way in,
+dropped on the way out.
+
 The one-stage families follow ``retinanet_key_map``,
 ``retinanet_v2_key_map`` and ``fcos_key_map``: the FPN over C3..C5
 (``fpn/lateral3..5``, ``post3..5``) with ``extra_blocks.p6``/``.p7``
@@ -41,6 +51,9 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from podtpu_torch.models.mobilenet import V2_SETTINGS
+from podtpu_torch.models.mobilenet_v3 import V3_LARGE_SETTINGS
+
 STAGE_SIZES = (3, 4, 6, 3)
 _BN_LEAVES = (("weight", "weight"), ("bias", "bias"),
               ("running_mean", "mean"), ("running_var", "var"))
@@ -49,6 +62,78 @@ _BN_LEAVES = (("weight", "weight"), ("bias", "bias"),
 def _bn(port: str, flax: str) -> List[Tuple[str, str, str, str]]:
     return [(f"{port}.{t}", "frozen", f"{flax}/{f}", "vector")
             for t, f in _BN_LEAVES]
+
+
+def _norm(port: str, flax: str,
+          batch: bool) -> List[Tuple[str, str, str, str]]:
+    """A mobile trunk's norm: frozen (:func:`_bn`) or, with ``batch``,
+    trainable, whose step count has no flax tensor (kind "count")."""
+    if not batch:
+        return _bn(port, flax)
+    return [(f"{port}.weight", "params", f"{flax}/weight", "vector"),
+            (f"{port}.bias", "params", f"{flax}/bias", "vector"),
+            (f"{port}.running_mean", "frozen", f"{flax}/mean", "vector"),
+            (f"{port}.running_var", "frozen", f"{flax}/var", "vector"),
+            (f"{port}.num_batches_tracked", None, None, "count")]
+
+
+def _conv_norm(port: str, conv: str, norm: str,
+               batch: bool) -> List[Tuple[str, str, str, str]]:
+    """A ``Conv2dNormActivation``: the convolution at ``port.0``, its norm
+    at ``port.1``."""
+    return (_layer(f"{port}.0", conv, "conv", bias=False)
+            + _norm(f"{port}.1", norm, batch))
+
+
+def _mobilenet_v2(prefix: str, batch: bool) -> List[Tuple[str, str, str, str]]:
+    """MobileNetV2's ``features`` at ``prefix`` (the port's ``backbone``,
+    torchvision's ``features``)."""
+    m = _conv_norm(f"{prefix}.0", "backbone/stem", "backbone/bn_stem", batch)
+    idx = 0
+    for t, _c, n, _s in V2_SETTINGS:
+        for _ in range(n):
+            idx += 1
+            tv, op = f"{prefix}.{idx}.conv", f"backbone/block{idx}"
+            j = 0
+            if t != 1:
+                m += _conv_norm(f"{tv}.0", f"{op}/expand", f"{op}/bn_expand",
+                                batch)
+                j = 1
+            m += _conv_norm(f"{tv}.{j}", f"{op}/dw", f"{op}/bn_dw", batch)
+            m += _layer(f"{tv}.{j + 1}", f"{op}/project", "conv", bias=False)
+            m += _norm(f"{tv}.{j + 2}", f"{op}/bn_project", batch)
+    return m + _conv_norm(f"{prefix}.18", "backbone/head", "backbone/bn_head",
+                          batch)
+
+
+def _mobilenet_v3(batch: bool) -> List[Tuple[str, str, str, str]]:
+    """The MobileNetV3-Large body of ``fasterrcnn_mobilenet_v3_large_fpn``
+    and its two-level FPN."""
+    body = "backbone.body"
+    m = _conv_norm(f"{body}.0", "backbone/stem", "backbone/bn_stem", batch)
+    cin = 16
+    for idx, (_k, e, c, se, _a, _s) in enumerate(V3_LARGE_SETTINGS,
+                                                 start=1):
+        tv, op = f"{body}.{idx}.block", f"backbone/block{idx}"
+        j = 0
+        if e != cin:
+            m += _conv_norm(f"{tv}.0", f"{op}/expand", f"{op}/bn_expand",
+                            batch)
+            j = 1
+        m += _conv_norm(f"{tv}.{j}", f"{op}/dw", f"{op}/bn_dw", batch)
+        if se:
+            j += 1
+            m += _layer(f"{tv}.{j}.fc1", f"{op}/se_fc1", "conv")
+            m += _layer(f"{tv}.{j}.fc2", f"{op}/se_fc2", "conv")
+        m += _conv_norm(f"{tv}.{j + 1}", f"{op}/project", f"{op}/bn_project",
+                        batch)
+        cin = c
+    m += _conv_norm(f"{body}.16", "backbone/head", "backbone/bn_head", batch)
+    for i in range(2):
+        m += _layer(f"backbone.fpn.inner_blocks.{i}", f"fpn/lateral{i}",
+                    "conv")
+        m += _layer(f"backbone.fpn.layer_blocks.{i}", f"fpn/post{i}", "conv")
+    return m
 
 
 def _layer(port: str, flax: str, kind: str,
@@ -105,16 +190,26 @@ def _one_stage_head(family: str,
 def key_map(with_mask: bool = False, with_keypoints: bool = False,
             rpn_conv_depth: int = 1, box_head_type: str = "mlp",
             fpn_norm: bool = False, mask_head_norm: bool = False,
-            family: str = "faster_rcnn", retinanet_head_norm: bool = False
+            family: str = "faster_rcnn", retinanet_head_norm: bool = False,
+            backbone: str = "resnet50_fpn", batch_norm: bool = False,
+            trunk_prefix: str = "backbone"
             ) -> List[Tuple[str, str, str, str]]:
     """``(port key, flax collection, flax path, kind)`` for every tensor of
     the Faster R-CNN ResNet-50-FPN detector with the MLP box head and, with
     ``with_mask``, Mask R-CNN's mask head, with ``with_keypoints`` Keypoint
     R-CNN's keypoint head; the other arguments are the ``ModelConfig``
-    fields of the v2 recipe.  With ``family`` "retinanet" (v2 with
-    ``retinanet_head_norm``) or "fcos": the one-stage model, its FPN over
-    C3..C5 (``fpn/lateral3..5``, ``post3..5``, ``p6``, ``p7``) and its
-    head."""
+    fields of the v2 recipe.  ``backbone`` "mobilenet_v2" (its ``features``
+    at ``trunk_prefix``) or "mobilenet_v3_fpn": that trunk in place of
+    ResNet-50-FPN, its norms trainable with ``batch_norm``.  With
+    ``family`` "retinanet" (v2 with ``retinanet_head_norm``) or "fcos": the
+    one-stage model, its FPN over C3..C5 (``fpn/lateral3..5``,
+    ``post3..5``, ``p6``, ``p7``) and its head."""
+    if backbone != "resnet50_fpn":
+        m = (_mobilenet_v2(trunk_prefix, batch_norm)
+             if backbone == "mobilenet_v2" else _mobilenet_v3(batch_norm))
+        return m + _two_stage_heads(with_mask, with_keypoints,
+                                    rpn_conv_depth, box_head_type,
+                                    mask_head_norm)
     m = _layer("backbone.body.conv1", "backbone/conv1", "conv", bias=False)
     m += _bn("backbone.body.bn1", "backbone/bn1")
     for stage, blocks in enumerate(STAGE_SIZES, start=1):
@@ -143,6 +238,15 @@ def key_map(with_mask: bool = False, with_keypoints: bool = False,
                          f"fpn/lateral{i + 2}", fpn_norm)
         m += _norm_layer(f"backbone.fpn.layer_blocks.{i}",
                          f"fpn/post{i + 2}", fpn_norm)
+    return m + _two_stage_heads(with_mask, with_keypoints, rpn_conv_depth,
+                                box_head_type, mask_head_norm)
+
+
+def _two_stage_heads(with_mask: bool, with_keypoints: bool,
+                     rpn_conv_depth: int, box_head_type: str,
+                     mask_head_norm: bool) -> List[Tuple[str, str, str, str]]:
+    """The RPN head and the RoI heads, whatever the trunk."""
+    m = []
     if rpn_conv_depth == 1:
         m += _layer("rpn.head.conv", "rpn_head/conv", "conv")
     else:
@@ -236,7 +340,12 @@ def _flax_layout(params: Dict, frozen: Dict) -> Dict:
                     else "retinanet",
                     retinanet_head_norm="cls_gn0" in params["head"])
     rpn = params.get("rpn_head", {})
-    return dict(with_mask="mask_head" in params,
+    trunk = params.get("backbone", {})
+    return dict(backbone="mobilenet_v2" if "block17" in trunk
+                else "mobilenet_v3_fpn" if "block15" in trunk
+                else "resnet50_fpn",
+                batch_norm="bn_stem" in trunk,
+                with_mask="mask_head" in params,
                 with_keypoints="keypoint_head" in params,
                 rpn_conv_depth=1 + sum(re.fullmatch(r"conv\d+", k) is not None
                                        for k in rpn),
@@ -244,6 +353,20 @@ def _flax_layout(params: Dict, frozen: Dict) -> Dict:
                 else "mlp",
                 fpn_norm="lateral2_bn" in frozen.get("fpn", {}),
                 mask_head_norm="bn1" in frozen.get("mask_head", {}))
+
+
+def _mobile_layout(state_dict: Dict) -> Dict:
+    """``key_map``'s trunk arguments of a state dict: the port's
+    MobileNetV2 (``backbone.0``), torchvision's ImageNet one (``features.0``),
+    the MobileNetV3 FPN body (``backbone.body.0``) or ResNet-50-FPN."""
+    for prefix, backbone, trunk in (
+            ("backbone.0", "mobilenet_v2", "backbone"),
+            ("features.0", "mobilenet_v2", "features"),
+            ("backbone.body.0", "mobilenet_v3_fpn", "backbone")):
+        if f"{prefix}.0.weight" in state_dict:
+            return dict(backbone=backbone, trunk_prefix=trunk, batch_norm=(
+                f"{prefix}.1.num_batches_tracked" in state_dict))
+    return dict(backbone="resnet50_fpn")
 
 
 def _state_dict_layout(state_dict: Dict) -> Dict:
@@ -258,6 +381,7 @@ def _state_dict_layout(state_dict: Dict) -> Dict:
     while f"rpn.head.conv.{depth}.0.weight" in state_dict:
         depth += 1
     return dict(
+        **_mobile_layout(state_dict),
         with_mask="roi_heads.mask_predictor.conv5_mask.weight" in state_dict,
         with_keypoints=("roi_heads.keypoint_predictor.kps_score_lowres."
                         "weight" in state_dict),
@@ -277,6 +401,9 @@ def state_dict_from_flax(params: Dict, frozen: Dict,
     trees = {"params": params, "frozen": frozen}
     sd = {}
     for key, coll, path, kind in key_map(**_flax_layout(params, frozen)):
+        if kind == "count":
+            sd[key] = np.zeros((), np.int64)
+            continue
         try:
             value = _get(trees[coll], path)
         except KeyError:
@@ -293,6 +420,8 @@ def flax_from_state_dict(state_dict: Dict,
     one, and the v2 recipe's layers where it has them."""
     trees: Dict[str, Dict] = {"params": {}, "frozen": {}}
     for key, coll, path, kind in key_map(**_state_dict_layout(state_dict)):
+        if kind == "count":
+            continue
         value = state_dict[key]
         if hasattr(value, "detach"):
             value = value.detach().cpu().numpy()
@@ -362,14 +491,19 @@ def _load_torchvision_by_path(model, state_dict: Dict, skip) -> int:
     shape)`` for the others.  Returns the number copied.  The paths are
     ``key_map``'s for the checkpoint's own layout, as the JAX package picks
     its key map by the checkpoint's keys, with either torchvision spelling
-    of a tensor (``_torchvision_alias``); on the model's side, its own."""
+    of a tensor (``_torchvision_alias``); on the model's side, its own.
+    Beyond the JAX package, the reference's MobileNetV2 Faster R-CNN state
+    dict (``backbone.{i}``) reads whole."""
     import torch
 
     own = model.state_dict()
     by_path = {(coll, path): k for k, coll, path, _ in
-               key_map(**_state_dict_layout(own))}
-    paths = {k: (coll, path) for k, coll, path, _ in
-             key_map(**_state_dict_layout(state_dict))}
+               key_map(**_state_dict_layout(own)) if coll is not None}
+    # A checkpoint's norms read as torchvision's frozen ones, as the JAX
+    # package's key maps read them: their affine terms do not reach a
+    # trainable norm's parameters.
+    layout = dict(_state_dict_layout(state_dict), batch_norm=False)
+    paths = {k: (coll, path) for k, coll, path, _ in key_map(**layout)}
     copied = 0
     with torch.no_grad():
         for k, v in state_dict.items():
@@ -402,7 +536,11 @@ def load_pretrained(model, path: str, verbose: bool = True):
     reads into a model of any family as the JAX package reads it: RetinaNet
     v1's ``conv.{2i}`` or ``conv.{i}.0``, v2's GroupNorm at ``conv.{i}.1``,
     FCOS's ``conv.{3i}`` and ``conv.{3i+1}``; a mis-sized ``cls_logits`` is
-    skipped.
+    skipped.  A torchvision ImageNet ``mobilenet_v2`` (``features.*``) fills
+    a MobileNetV2 model's trunk, a ``fasterrcnn_mobilenet_v3_large_fpn``
+    (``backbone.body.*``) a MobileNetV3 FPN model; a checkpoint's norms
+    read as frozen ones, so their affine terms do not reach a trainable
+    norm's parameters, as in the JAX package.
     """
     import os
 
@@ -448,6 +586,8 @@ def load_pretrained(model, path: str, verbose: bool = True):
             if layout.get("family"):
                 name = layout["family"] + (
                     "_v2" if layout["retinanet_head_norm"] else "")
+            elif layout["backbone"] != "resnet50_fpn":
+                name = layout["backbone"]
             else:
                 name = "v2" if "rpn.head.conv.1.0.weight" in state_dict \
                     else "v1"

@@ -19,9 +19,15 @@ optimisers whose updates equal those chains:
   and then subtracts ``lr`` times the Adam update, which is optax's
   ``scale_by_adam`` then ``add_decayed_weights`` then ``-lr``.
 
-``norm_weight_decay`` becomes a second parameter group.  Frozen backbone
+``norm_weight_decay`` becomes a second parameter group.  Frozen ResNet
 stages are not in the optimiser at all (they have ``requires_grad=False``),
 so they get neither a gradient nor an update, as under ``optax.masked``.
+The JAX package's mask names ResNet's modules only, so a mobile trunk's
+frozen units stay in its chain: ``stop_gradient`` gives them zero
+gradients, and weight decay and momentum still move them.  The port's
+mobile models keep them in the optimiser too, and :func:`apply_optimizer`
+gives a parameter that autograd did not reach (a frozen unit's, behind a
+``detach``) a zero gradient, where torch's optimisers would skip it.
 ``momentum_dtype="bfloat16"`` keeps the SGD buffer in bf16 and adds in
 float32 (:class:`SGDBF16Momentum`).  ``fused_sgd`` is plain SGD here: its
 flat parameter buffer in the JAX package is a TPU mechanism (fewer XLA
@@ -160,7 +166,17 @@ def _groups(train_cfg: TrainConfig, named, norm_names=()) -> List[dict]:
 def make_optimizer(train_cfg: TrainConfig,
                    model: torch.nn.Module) -> torch.optim.Optimizer:
     """The optimiser of ``train_cfg`` over ``model``'s trainable parameters
-    (``requires_grad`` and not in a frozen stage of ``model.cfg``)."""
+    (``requires_grad`` and not in a frozen stage of ``model.cfg``); on a
+    mobile trunk its groups carry ``zero_absent_grads``."""
+    optimizer = _make_optimizer(train_cfg, model)
+    if model.cfg.backbone != "resnet50_fpn":
+        for group in optimizer.param_groups:
+            group["zero_absent_grads"] = True
+    return optimizer
+
+
+def _make_optimizer(train_cfg: TrainConfig,
+                    model: torch.nn.Module) -> torch.optim.Optimizer:
     mask = trainable_mask_fn(model.cfg)
     named = [(n, p) for n, p in model.named_parameters()
              if p.requires_grad and mask(n)]
@@ -236,7 +252,13 @@ def apply_optimizer(optimizer: torch.optim.Optimizer, lr,
     update's arithmetic does not depend on which was given.  Inside a CUDA
     graph ``lr`` must be the tensor the graph reads.  An Adam or AdamW that
     is not capturable (:func:`make_capturable`) reads its rate on the host
-    and gets it as a float."""
+    and gets it as a float.  In a group with ``zero_absent_grads`` a
+    parameter without a gradient gets a zero one (a fill: capturable)."""
+    for group in optimizer.param_groups:
+        if group.get("zero_absent_grads"):
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
     if clip_grad_norm:
         clip_by_global_norm_([p for g in optimizer.param_groups
                               for p in g["params"]], float(clip_grad_norm))

@@ -19,6 +19,7 @@ from podtpu_torch.data.presets import (SCALE_RANGES, AugmentDraws,
                                        get_policy, policy_kwargs)
 from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.detector import ModelDraws, draw_model
+from podtpu_torch.models.resnet import batch_statistics
 from podtpu_torch.ops.image_ops import copy_paste_batch
 from podtpu_torch.train.optim import apply_optimizer, make_capturable
 
@@ -116,7 +117,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if "image_weight" in batch:
             gt["image_weight"] = batch["image_weight"]
         mark("forward_losses")
-        losses = model(images, gt=gt, draws=draws.model)
+        # Trainable norms take batch statistics in this forward only.
+        with batch_statistics(model):
+            losses = model(images, gt=gt, draws=draws.model)
         total = sum(losses.values())
         mark("backward")
         optimizer.zero_grad(set_to_none=True)

@@ -23,7 +23,11 @@ in the order of :class:`Loader` on every path.  Each epoch's random draws
 come from a ``torch.Generator`` on the model's device seeded from ``(seed,
 epoch)``, drawn in step order (a group's before its replay), so a resumed
 run draws what the straight run drew; ``draws`` replaces them with the
-caller's.
+caller's.  ``backbone`` takes the JAX package's spellings
+(``mobilenet_v2``, ``mobilenet_v3_fpn``, ``mobilenet_v3_320_fpn``); from
+scratch a mobile trunk's frozen norms become trainable BatchNorm
+(``backbone_norm="batch"``), as torchvision's constructors choose for an
+untrained trunk.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ import torch
 
 from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
                                       fasterrcnn_v2_config, fcos_config,
+                                      mobilenet_config,
+                                      mobilenet_v3_fpn_config,
                                       model_config_from_dict,
                                       retinanet_config, retinanet_v2_config)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
@@ -138,6 +144,11 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 
 # Families whose backbone is fixed (``podtpu/core/config.py``).
 _TIED_BACKBONE = {"ssd": "vgg16", "ssdlite": "mobilenet_v3"}
+# The two-stage mobile trunks as ``train(backbone=...)`` spells them.
+MOBILE_SPELLINGS = ("mobilenet_v2", "mobilenet_v3_fpn",
+                    "mobilenet_v3_320_fpn")
+# Trunks whose from-scratch runs switch to trainable BatchNorm.
+MOBILE_TRUNKS = ("mobilenet_v2", "mobilenet_v3_fpn", "mobilenet_v3")
 
 
 def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
@@ -187,11 +198,11 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
             "(torchvision has no v2 recipe for the mobilenet extractors)")
     missing = None
     if fam in _TIED_BACKBONE:
-        missing = f"family={fam!r} (item 14: SSD and the mobile trunks)"
+        missing = f"family={fam!r} (item 14: SSD and its MobileNetV3 trunk)"
     elif fam not in ("faster_rcnn", "retinanet", "fcos"):
         missing = f"family={fam!r}"
-    elif net != "resnet50_fpn":
-        missing = f"backbone={net!r} (item 14: the mobile trunks)"
+    elif net not in ("resnet50_fpn",) + MOBILE_SPELLINGS:
+        missing = f"backbone={net!r}"
     elif num_devices is not None and num_devices > 1:
         missing = f"num_devices={num_devices} (item 18: data parallelism)"
     if missing is not None:
@@ -262,6 +273,16 @@ def train(project: Project,
         model_cfg = retinanet_config(model_cfg)
     elif family == "fcos" and model_cfg.family != "fcos":
         model_cfg = fcos_config(model_cfg)
+    if backbone == "mobilenet_v2" and model_cfg.backbone != "mobilenet_v2":
+        # The reference's MobileNetV2 single-map Faster R-CNN.
+        model_cfg = mobilenet_config(model_cfg)
+    elif backbone in ("mobilenet_v3_fpn", "mobilenet_v3_320_fpn") \
+            and model_cfg.backbone != "mobilenet_v3_fpn":
+        # torchvision's fasterrcnn_mobilenet_v3_large_fpn and _320_fpn.
+        model_cfg = mobilenet_v3_fpn_config(
+            model_cfg, low_res=backbone == "mobilenet_v3_320_fpn")
+    elif backbone is not None:
+        model_cfg = dataclasses.replace(model_cfg, backbone=backbone)
 
     print()
     print("=" * 80)
@@ -288,6 +309,15 @@ def train(project: Project,
                                         trainable_backbone_stages=5)
         print("No pretrained weights: training all backbone stages "
               "(freezing random features would stall learning)")
+    if (pretrained is None and restored is None
+            and model_cfg.backbone in MOBILE_TRUNKS
+            and model_cfg.backbone_norm == "frozen"):
+        # torchvision's from-scratch norm rule (FrozenBatchNorm2d only for
+        # pretrained starts): identity frozen norms leave a mobile trunk
+        # without normalisation.  ResNet trains frozen from scratch.
+        model_cfg = dataclasses.replace(model_cfg, backbone_norm="batch")
+        print("No pretrained weights: mobile trunk uses trainable "
+              "BatchNorm (torchvision's from-scratch norm rule)")
     if pretrained and os.path.isdir(pretrained) and not resumed_model_cfg:
         # Fine-tuning from a model directory adopts its backbone_norm.
         pcfg_path = os.path.join(pretrained, "config.json")

@@ -245,6 +245,7 @@ TRAIN_CASES = {
                   "--epochs", "6", "--lr-gamma", "0.5",
                   "--norm-weight-decay", "0"],
     "v2": ["--family", "faster_rcnn_v2"],
+    "mobile_320": ["--backbone", "mobilenet_v3_320_fpn"],
     "v2_mask": ["--family", "faster_rcnn_v2", "--with-mask"],
     "keypoints": ["--with-keypoints", "--num-keypoints", "3",
                   "--keypoint-hflip-inds", "1,0,2",
@@ -334,7 +335,7 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     (["serve", "--model", "m", "--exported"], "item 17"),
     (["train-object-detector", "-t", "5", "--family", "ssd"],
      "item 14"),
-    (["train-object-detector", "-t", "5", "--backbone", "mobilenet_v2"],
+    (["train-object-detector", "-t", "5", "--family", "ssdlite"],
      "item 14"),
     (["train-object-detector", "-t", "5", "--num-devices", "2"], "item 18"),
 ])

@@ -235,13 +235,30 @@ class TestEvalForward:
 
     def test_make_detector_refuses_unported_models(self):
         from podtpu.core.config import fasterrcnn_v2_config, mobilenet_config
+        from podtpu.models import weights as jax_weights
+        from podtpu_torch.models.resnet import BatchNorm2d, FrozenBatchNorm2d
 
-        cfg = model_config_from_dict(dataclasses.asdict(mobilenet_config()))
+        # The mobile trunks are ported: MobileNetV2 in the JAX package's
+        # module layout (torchvision's features under ``backbone.``).
+        cfg = model_config_from_dict(dataclasses.asdict(mobilenet_config(
+            image_size=(64, 64))))
+        trunk = {k.replace("backbone.", "features.", 1)
+                 for k in make_detector(cfg).state_dict()
+                 if k.startswith("backbone.")}
+        assert trunk == set(jax_weights.mobilenet_v2_key_map())
+        # backbone_norm="batch": trainable norms on a mobile trunk; a ResNet
+        # trunk ignores it and keeps its frozen norms, as in JAX.
+        batch = dataclasses.replace(cfg, backbone_norm="batch")
+        norms = {type(m) for m in make_detector(batch).backbone.modules()
+                 if isinstance(m, (BatchNorm2d, FrozenBatchNorm2d))}
+        assert norms == {BatchNorm2d}
+        resnet = make_detector(ModelConfig(image_size=(64, 64),
+                                           backbone_norm="batch"))
+        assert {type(m) for m in resnet.modules()
+                if isinstance(m, (BatchNorm2d, FrozenBatchNorm2d))} == {
+            FrozenBatchNorm2d}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_detector(cfg)
-        for kw in (dict(family="ssd"), dict(backbone_norm="batch")):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                make_detector(ModelConfig(**kw))
+            make_detector(ModelConfig(family="ssd"))
         # The v2 recipe is ported, its normed mask tower too.
         v2 = make_detector(model_config_from_dict(dataclasses.asdict(
             fasterrcnn_v2_config(with_mask=True))))
