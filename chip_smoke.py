@@ -976,21 +976,32 @@ MODELS = ("faster", "mask", "keypoint", "faster_v2", "mask_v2",
 # segment an image.
 ONE_STAGE = ("retinanet", "retinanet_v2", "fcos")
 # The augmentation policy each model trains with: the v2 recipes' scale
-# jitters, the reference pipeline's miso for the others.
-MODEL_POLICY = {"faster_v2": "lsj", "mask_v2": "multiscale"}
+# jitters, SSD's own, the reference pipeline's miso for the others.
+MODEL_POLICY = {"faster_v2": "lsj", "mask_v2": "multiscale", "ssd": "ssd",
+                "ssdlite": "ssdlite"}
 # The mobile trunks under Faster R-CNN (phase 17): MobileNetV2 (one
 # stride-32 map of 1280 channels), MobileNetV3-Large-FPN and its 320
 # recipe, each as ``train()`` builds it from scratch: trainable BatchNorm,
 # every unit training.
 MOBILE = ("mobilenet_v2", "mobilenet_v3_fpn", "mobilenet_v3_320")
+# SSD300-VGG16 and SSDLite320-MobileNetV3 (phase 18), each as ``train()``
+# builds it from scratch: every stage training, SSDLite's norms trainable.
+SSD = ("ssd", "ssdlite")
 
 
 def model_config(model, **kw):
-    """The ``ModelConfig`` of ``model`` (one of ``MODELS`` or ``MOBILE``)
-    with the fields ``kw``: a one-stage family's preset over
-    ``ModelConfig(**kw)``; a mobile trunk's preset, then ``kw``."""
+    """The ``ModelConfig`` of ``model`` (one of ``MODELS``, ``MOBILE`` or
+    ``SSD``) with the fields ``kw``: a one-stage family's preset over
+    ``ModelConfig(**kw)``; a mobile trunk's or SSD's preset, then
+    ``kw``."""
     from podtpu_torch.core import config
 
+    if model in SSD:
+        preset = {"ssd": config.ssd_config, "ssdlite": config.ssdlite_config
+                  }[model](config.ModelConfig())
+        return dataclasses.replace(
+            preset, trainable_backbone_stages=5,
+            backbone_norm="batch" if model == "ssdlite" else "frozen", **kw)
     if model in MOBILE:
         preset = config.mobilenet_config(config.ModelConfig()) \
             if model == "mobilenet_v2" else config.mobilenet_v3_fpn_config(
@@ -1034,7 +1045,7 @@ def model_kwargs(model):
     from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, ModelConfig,
                                           fasterrcnn_v2_config)
 
-    if model in ONE_STAGE + MOBILE:
+    if model in ONE_STAGE + MOBILE + SSD:
         return {}
     head = {"mask": dict(with_mask=True),
             "keypoint": dict(with_keypoints=True,
@@ -1056,6 +1067,9 @@ def head_of(model):
 def model_title(model):
     """``model``'s name in the records, e.g. mask_rcnn_resnet50_fpn_v2,
     retinanet_resnet50_fpn_v2, fasterrcnn_mobilenet_v3_large_320_fpn."""
+    if model in SSD:
+        return {"ssd": "ssd300_vgg16",
+                "ssdlite": "ssdlite320_mobilenet_v3_large"}[model]
     if model in MOBILE:
         return {"mobilenet_v2": "fasterrcnn_mobilenet_v2",
                 "mobilenet_v3_fpn": "fasterrcnn_mobilenet_v3_large_fpn",
@@ -1305,12 +1319,13 @@ def device_profile(torch, run, reps=3, unit="forward"):
 def serve_slice(torch, card, dev, cfg, captured, model="faster",
                 roi_captured=None):
     """``cfg``'s model (``model``, one of ``MODELS``: "faster", or
-    "faster_v2" for the ``v2_serve`` phase, or a one-stage family) with
+    "faster_v2" for the ``v2_serve`` phase, a one-stage family or SSD) with
     seeded random weights (a one-stage model's scores lifted,
     ``lift_scores``), saved as a model directory and served by
     ``DetectionServer(batch_size=4)`` behind HTTP to 8 client threads;
     each batch must launch K1 twice and K2 once (a one-stage model: K1
-    once, its one segment an image at least 90 % valid boxes, and no K2).
+    once, its one segment an image at least 90 % valid boxes, and no K2;
+    SSD: K1 once, one segment per image and foreground class).
     Then its breakdown line.  One batch's K1 inputs go to ``captured``,
     its K2 inputs to ``roi_captured`` when given.  Returns the
     launches."""
@@ -1383,6 +1398,7 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster",
             batches = server.batches_served - served0
             lat = sorted(server.batch_seconds)
             stages = (one_stage_breakdown if model in ONE_STAGE
+                      else ssd_breakdown if model in SSD
                       else stage_breakdown)(torch, server.model, images[:4])
             x = torch.from_numpy(np.stack(images[:4])).to(dev)
 
@@ -1432,6 +1448,9 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster",
     emit({"phase": phase_name(model, "breakdown"), "batch_size": 4,
           "stages_ms": stages, "profile": prof, "card": card})
     per_batch = {"nms": 2, "roi_align_fwd": 1}
+    if model in SSD:
+        per_batch = {"nms": 1, "roi_align_fwd": 0}
+        check_ssd_segments(model, calls, 4, cfg)
     if model in ONE_STAGE:
         per_batch = {"nms": 1, "roi_align_fwd": 0}
         boxes, valid = calls[0][:2]
@@ -1686,11 +1705,27 @@ def train_breakdown(torch, model, optimizer, cfg, batch, gen, reps=5):
 KERNELS = ("nms", "roi_align_fwd", "roi_align_bwd")
 
 
+# SSD300's gradients are clipped to this global norm in its train cells and
+# driver: from scratch (VGG16 without norms on the Caffe recipe's 0-255
+# input) it diverges at the ``TrainConfig`` rate, with or without the
+# warmup (on the CPU at 268^2: loss 62 to 1e6 in three steps at 0.005, and
+# ``train()`` on 8 images stopped on a NaN loss in its second epoch).
+SSD_CLIP = 10.0
+
+
+def cell_train(model):
+    """The ``TrainConfig`` of ``model``'s train cells and driver: the
+    defaults, with SSD300's gradients clipped (``SSD_CLIP``)."""
+    from podtpu_torch.core.config import TrainConfig
+
+    return TrainConfig(clip_grad_norm=SSD_CLIP if model == "ssd" else None)
+
+
 def per_step_launches(model):
     """Our kernels' launches in one training step of ``model``: K1 once,
     K2 and K3 once (twice with a mask or keypoint head: the box head at
-    7, the other at 14); none in a one-stage step."""
-    if model in ONE_STAGE:
+    7, the other at 14); none in a one-stage or SSD step."""
+    if model in ONE_STAGE + SSD:
         return dict.fromkeys(KERNELS, 0)
     extra = head_of(model) is not None
     return {"nms": 1, "roi_align_fwd": 1 + extra, "roi_align_bwd": 1 + extra}
@@ -1727,6 +1762,7 @@ def train_slice(torch, card, dev, model="faster", warmup=3, timed=20,
     kps = head == "keypoint"
     cfg = Config(model=model_config(model, **({} if kps
                                               else dict(num_classes=4))),
+                 train=cell_train(model),
                  data=DataConfig(aug_policy=MODEL_POLICY.get(model, "miso")))
     mcfg = cfg.model
     prefix = phase_name(model, "")
@@ -3364,13 +3400,16 @@ def capture_nms_out(nms, fn, *args, **kwargs):
 def one_stage_driver_phase(torch, card, dev, model, config=None,
                            size=(1024, 1024), n_images=24, n_infer=8,
                            after=None):
-    """``train(family=model)`` (a one-stage family) at the ``Config()``
-    defaults on the driver phase's 24 in-memory images for 2 epochs, from
-    a model directory of seeded weights whose class prior is 0.1 (0.2 for
-    FCOS, whose score is ``sqrt(class * centre-ness)``), over the score
-    thresholds (``lift_scores``), passed as ``pretrained``: from the 0.01
-    prior, 20 steps leave every score under the thresholds and the K1
-    segments hold no valid box.  Then ``evaluate_model`` on its 4 test images, ``infer`` on
+    """``train(family=model)`` (a one-stage family or SSD) at the
+    ``Config()`` defaults on the driver phase's 24 in-memory images for 2
+    epochs, from a model directory of seeded weights whose class prior is
+    0.1 (0.2 for FCOS, whose score is ``sqrt(class * centre-ness)``), over
+    the score thresholds (``lift_scores``), passed as ``pretrained``: from
+    the 0.01 prior, 20 steps leave every score under the thresholds and
+    the K1 segments hold no valid box.  SSD trains from scratch (its
+    softmax scores clear its thresholds), on its own canvas, every stage
+    training, SSDLite's norms switched to trainable ones.  Then
+    ``evaluate_model`` on its 4 test images, ``infer`` on
     ``n_infer`` unlabelled images at the median of their best scores,
     which must keep boxes, and 4 ``DetectionServer`` requests.  The model
     directory keeps the family's fields; every loss is finite; training
@@ -3387,19 +3426,24 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
     from podtpu_torch.train import train as driver
     from podtpu_torch.train.checkpoints import save_labels, save_model
 
-    config = config or Config()
+    config = config or Config(train=cell_train(model))
     images, project, test_project, test_idx, infer_project, infer_metas = \
         driver_inputs(size, n_images, n_infer)
     tmp = tempfile.mkdtemp(prefix=f"podtpu_{model}_")
-    start_cfg = model_config(model, **dict(
-        dataclasses.asdict(config.model),
-        num_classes=len(DRIVER_LABELS) + 1))
-    start = make_detector(start_cfg)
-    init_parameters(start, torch.Generator().manual_seed(SEED))
-    lift_scores(torch, start, prior=0.2 if model == "fcos" else 0.1)
-    save_model(os.path.join(tmp, "start"), start, start_cfg, DRIVER_LABELS)
-    save_labels(os.path.join(tmp, "start"), DRIVER_LABELS)
-    del start
+    pretrained = None
+    if model in SSD:
+        start_cfg = model_config(model, num_classes=len(DRIVER_LABELS) + 1)
+    else:
+        start_cfg = model_config(model, **dict(
+            dataclasses.asdict(config.model),
+            num_classes=len(DRIVER_LABELS) + 1))
+        start = make_detector(start_cfg)
+        init_parameters(start, torch.Generator().manual_seed(SEED))
+        lift_scores(torch, start, prior=0.2 if model == "fcos" else 0.1)
+        pretrained = os.path.join(tmp, "start")
+        save_model(pretrained, start, start_cfg, DRIVER_LABELS)
+        save_labels(pretrained, DRIVER_LABELS)
+        del start
     read_rgb = imageio.read_rgb
     imageio.read_rgb = images.__getitem__
     try:
@@ -3407,7 +3451,7 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
         model_dir, launches, rec, seconds = driven(
             torch, driver, driver.train, project, output_dir=tmp, name=model,
             batch_size=2, seed=0, config=config, device=dev, max_epochs=2,
-            family=model, pretrained=os.path.join(tmp, "start"))
+            family=model, pretrained=pretrained)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         (stats, eval_calls), evaluated, _, eval_s = driven(
             torch, driver, capture_nms_out, nms, driver.evaluate_model,
@@ -3426,9 +3470,12 @@ def one_stage_driver_phase(torch, card, dev, model, config=None,
     threshold, infer_calls = inf["threshold"], inf["calls"]
     infer_launches, infer_s = inf["launches"], inf["seconds"]
     fields = {k: getattr(inf["stored"], k) for k in (
-        "family", "retinanet_head_norm", "retinanet_box_loss",
-        "retinanet_p6_on_c5", "score_thresh", "nms_thresh",
-        "detections_per_image", "strides")}
+        ("family", "backbone", "backbone_norm", "trainable_backbone_stages",
+         "image_size", "ssd_topk_per_class", "score_thresh", "nms_thresh",
+         "detections_per_image") if model in SSD else
+        ("family", "retinanet_head_norm", "retinanet_box_loss",
+         "retinanet_p6_on_c5", "score_thresh", "nms_thresh",
+         "detections_per_image", "strides"))}
     want_fields = {k: getattr(start_cfg, k) for k in fields}
     segments = {path: [c[1].sum(-1).tolist() for c in calls]
                 for path, calls in (("evaluate_model", eval_calls),
@@ -4335,6 +4382,7 @@ def cached_train_slice(torch, card, dev, model="faster", timed=5,
     head = head_of(model)
     cfg = Config(model=model_config(model, **({} if head == "keypoint"
                                               else dict(num_classes=4))),
+                 train=cell_train(model),
                  data=DataConfig(aug_policy=MODEL_POLICY.get(model, "miso")))
     mcfg, k, bs = cfg.model, cfg.train.steps_per_dispatch, \
         cfg.train.batch_size
@@ -4426,10 +4474,10 @@ def cached_train_slice(torch, card, dev, model="faster", timed=5,
         bad.append("a loss is not finite")
     if multi.captures != 1:
         bad.append(f"{multi.captures} captures")
-    if not held["within_limit"] or (model in MOBILE
+    if not held["within_limit"] or (model in MOBILE + SSD
                                     and not held["bitwise"]):
-        # A mobile trunk's replay must also write its norms' running
-        # statistics to the bit.
+        # A mobile trunk's and SSD's replay must give the eager steps'
+        # bits, the norms' running statistics included.
         bad.append(f"held group {held}")
     if launches != want or counted[-1] != want or profiled != want:
         bad.append(f"launches per replay {launches}, profiled replay "
@@ -4865,6 +4913,305 @@ def mobile_phases(torch, card, dev, captured):
     return paths, k2 + k3["k2"], k3["k3"], cached
 
 
+# -- phase 18: SSD300-VGG16 and SSDLite320-MobileNetV3 -----------------------
+
+def check_ssd_segments(model, calls, batch, cfg):
+    """SSD's postprocess made one K1 call of one segment per (image,
+    foreground class), each of ``min(ssd_topk_per_class, anchors)``
+    candidates: as many per call as ``calls`` show, under the kernel's cap
+    at any class count."""
+    from podtpu_torch.ops.nms import MAX_BOXES
+
+    want = (batch * (cfg.num_classes - 1), cfg.ssd_topk_per_class, 4)
+    shapes = [tuple(c[0].shape) for c in calls]
+    if shapes != [want] or want[1] > MAX_BOXES:
+        raise AssertionError(f"{model}: K1 calls of shapes {shapes}, "
+                             f"expected one of {want}")
+
+
+def ssd_breakdown(torch, model, images):
+    """Milliseconds of each stage of an SSD model's eval forward on the
+    card (CUDA events, median), each fed the previous stage's outputs: the
+    trunk with its extras, the head, softmax with decode and each class's
+    top-k, the per-(image, class) NMS (K1), the output's top-k; and the
+    whole forward."""
+    from podtpu_torch.models import ssd
+    from podtpu_torch.ops import nms
+
+    cfg = model.cfg
+    x = torch.from_numpy(np.stack(images)).cuda()
+    anchors = model.default_boxes
+    with torch.inference_mode():
+        maps = model.features(x)
+        logits, deltas = (torch.cat(h, 1) for h in model.head(maps))
+        boxes, scores, valid = ssd.class_candidates(logits, deltas, anchors,
+                                                    cfg)
+        keep = nms.class_segments_nms_keep(boxes, valid, cfg.nms_thresh)
+        stages = {
+            "trunk": lambda: model.features(x),
+            "head": lambda: model.head(maps),
+            "decode_topk": lambda: ssd.class_candidates(logits, deltas,
+                                                        anchors, cfg),
+            "nms": lambda: nms.class_segments_nms_keep(boxes, valid,
+                                                       cfg.nms_thresh),
+            "output": lambda: ssd.select_detections(boxes, scores, keep,
+                                                    cfg),
+            "forward": lambda: model(x),
+        }
+        return {name: time_ms(fn, reps=10) for name, fn in stages.items()}
+
+
+def scaled_classes(torch, net, factor=30.0):
+    """A copy of the SSD model ``net`` whose class convolutions' kernels
+    (each map's last) are ``factor`` times as large: a random head scores
+    every class near 1 / C, within rounding of each other."""
+    net = copy.deepcopy(net)
+    with torch.no_grad():
+        for m in net.head.classification_head.module_list:
+            last = m[-1] if isinstance(m, torch.nn.Sequential) else m
+            last.weight.mul_(factor)
+    return net
+
+
+def check_ssd_reference(torch, dev, model, captured):
+    """SSD300 at 300^2 with its recipe's steps (``model`` "ssd") or
+    SSDLite at 320^2 with trainable norms of random values ("ssdlite"), 4
+    classes, float32 with TF32 off, on the card against the same weights
+    on the CPU: the eval forward of copies whose class kernels are scaled
+    by 30 (``scaled_classes``; its K1 call into ``captured``), then one
+    train step under the family's policy on the same draws, its losses,
+    gradients, update and SSDLite's running statistics, held to
+    ``check_mobile_reference``'s limits (a gradient whose CPU value is
+    under 1e-6 of the step's largest entry, an exact zero, is held under
+    that on the card); SSDLite's step teacher-forced norm by norm
+    (``norm_outputs``)."""
+    from podtpu_torch.core.config import Config, DataConfig
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.ops import nms
+    from podtpu_torch.train.optim import make_optimizer
+    from podtpu_torch.train.step import draw_train, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mcfg = model_config(model, compute_dtype="float32", num_classes=4,
+                        max_gt_boxes=8)
+    cfg = Config(model=mcfg, data=DataConfig(aug_policy=MODEL_POLICY[model]))
+    size = tuple(mcfg.image_size)
+    try:
+        cpu = make_detector(mcfg)
+        init_parameters(cpu, torch.Generator().manual_seed(SEED))
+        if model == "ssdlite":
+            random_norms(torch, cpu, SEED)
+        cpu = cpu.to(memory_format=torch.channels_last)
+        gpu = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(SEED)
+        img = rng.integers(0, 256, (2, *size, 3)).astype(np.uint8)
+        with torch.inference_mode():
+            want = scaled_classes(torch, cpu)(torch.from_numpy(img))
+            scaled = scaled_classes(torch, gpu)
+            out = []
+            calls = capture_nms(nms, lambda: out.append(scaled(
+                torch.from_numpy(img).to(dev))))
+        check_ssd_segments(model, calls, 2, mcfg)
+        captured.append((f"{model}_reference", calls))
+        rec = {"phase": phase_name(model, "reference"),
+               "model": model_title(model), "image_size": list(size),
+               "steps": list(mcfg.ssd_steps), "seed": SEED,
+               "eval": detection_gaps(torch, out[0], want)}
+        batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+            rng, 2, size, 8, n_gt=(1, 8), side=(16, 120)).items()}
+        draws = draw_train(torch.Generator().manual_seed(SEED), cfg, batch)
+        outs, steps = {}, {}
+        for name, net, device in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+            step = make_train_step(net, make_optimizer(cfg.train, net), cfg,
+                                   device=device)
+            with norm_outputs(torch, net, record=outs,
+                              force=None if name == "cpu" else outs) as gaps:
+                steps[name] = {k: float(v) for k, v in step(
+                    batch, 0.005, draws=move(draws, device)).items()}
+        sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
+        named = dict(gpu.named_parameters())
+        grads = {n: (p.grad, named[n].grad.cpu())
+                 for n, p in cpu.named_parameters() if p.grad is not None}
+        # An exact zero (a bias whose every path runs into a training
+        # norm's mean) rounds to about 1e-6 of the step's largest gradient
+        # entry: SSDLite's at 320^2 reach a few 1e-6 absolute.
+        largest = max(float(g.abs().max()) for g, _ in grads.values())
+        zero_at = 1e-6 * max(1.0, largest)
+        zero = {n for n, (g, _) in grads.items()
+                if float(g.abs().max()) < zero_at}
+        stats = [k for k in sd_c if k.endswith(("running_mean",
+                                                "running_var"))
+                 and not k.startswith("head.")]
+        rec["train"] = {
+            "aug_policy": cfg.data.aug_policy,
+            "norms_forced": len(gaps),
+            "norm_correction_max": max(gaps.values(), default=0.0),
+            "loss_max_rel_err": max(
+                abs(steps["card"][k] - v) / max(abs(v), 1e-12)
+                for k, v in steps["cpu"].items() if k != "lr"),
+            "grad_max_err_over_tensor_max": max(
+                (float((g2 - g).abs().max() / g.abs().max()), n)
+                for n, (g, g2) in grads.items() if n not in zero),
+            "grad_max_rel_l2_err": max(
+                (float((g2 - g).norm() / g.norm()), n)
+                for n, (g, g2) in grads.items() if n not in zero),
+            "gradients": len(grads), "zero_gradients": len(zero),
+            "largest_gradient": largest, "zero_below": zero_at,
+            "zero_gradient_max_abs": max(
+                [float(g2.abs().max()) for n, (g, g2) in grads.items()
+                 if n in zero], default=0.0),
+            "param_max_abs_err": max(
+                float((sd_g[n].cpu() - p.detach()).abs().max())
+                for n, p in cpu.named_parameters()),
+            "running_stat_max_err": max(
+                (float((sd_g[k].cpu() - sd_c[k]).abs().max())
+                 / max(1.0, float(sd_c[k].abs().max())) for k in stats),
+                default=0.0),
+            "running_stats": len(stats),
+            "finite": all(np.isfinite(v) for v in steps["card"].values())}
+        emit(rec)
+        t = rec["train"]
+        if not (detections_held(rec["eval"])
+                and t["finite"] and t["norm_correction_max"] <= 1e-4
+                and t["norms_forced"] == len(stats) // 2
+                and t["loss_max_rel_err"] <= 1e-4
+                and t["grad_max_rel_l2_err"][0] <= 3e-2
+                and t["grad_max_err_over_tensor_max"][0] <= 1.5e-1
+                and t["zero_gradient_max_abs"] <= zero_at
+                and t["param_max_abs_err"] <= 2.5e-5
+                and t["running_stat_max_err"] <= 1e-5):
+            raise AssertionError(f"{model}_reference: {rec}")
+        return rec
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+SSD_CLASSES = 32
+
+
+def ssd_classes_phase(torch, card, dev, captured):
+    """Both SSD families at ``SSD_CLASSES`` classes, seeded, from a model
+    directory: ``4 * 31`` candidate lists a batch of 4, SSD300's 400 a
+    class (12,400 an image) and SSDLite's 300 (9,300), past K1's 9,216 as
+    one merged pool.  One batch through ``DetectionServer`` (4 client
+    threads) must launch K1 once, and ``load_inference_model``'s forward
+    of the same batch must make one K1 call of 124 segments and give the
+    detections that the plain NMS gives, bit for bit.  Returns the
+    launches by path; the K1 calls go to ``captured``."""
+    from podtpu_torch.infer.inference import load_inference_model
+    from podtpu_torch.infer.server import DetectionServer
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.ops import _build, nms
+    from podtpu_torch.train.checkpoints import save_labels, save_model
+
+    paths = {}
+    labels = [f"taxon{i}" for i in range(1, SSD_CLASSES)]
+    for model in SSD:
+        cfg = model_config(model, num_classes=SSD_CLASSES)
+        rng = np.random.default_rng(SEED + 30)
+        images = [rng.integers(0, 256, (*cfg.image_size, 3), dtype=np.uint8)
+                  for _ in range(4)]
+        with tempfile.TemporaryDirectory() as model_dir:
+            net = make_detector(cfg)
+            init_parameters(net, torch.Generator().manual_seed(SEED))
+            save_model(model_dir, net, cfg, labels)
+            save_labels(model_dir, labels)
+            del net
+            server = DetectionServer(model_dir, batch_size=4, device=dev)
+            try:
+                server.detect_array(images[0], 0.05)  # warm-up
+                results = [None] * 4
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                served0 = server.batches_served
+                ts = [threading.Thread(target=lambda i=i: results.__setitem__(
+                    i, server.detect_array(images[i], 0.05)))
+                      for i in range(4)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=300)
+                torch.cuda.synchronize()
+                served = dict(_build.launches)
+                batches = server.batches_served - served0
+            finally:
+                server.close()
+            forward, _, _, _ = load_inference_model(model_dir, dev)
+            x = np.stack(images)
+            out = []
+            _build.reset_launches()
+            calls = capture_nms(nms, lambda: out.append(forward(x)))
+            launched = dict(_build.launches)
+            launch = nms.nms_keep_batched
+            nms.nms_keep_batched = lambda b, v, t_, order=None: \
+                plain_keep(torch, nms, b, v, t_, order)
+            try:
+                plain = forward(x)
+            finally:
+                nms.nms_keep_batched = launch
+            torch.cuda.synchronize()
+        got = out[0]
+        same = all(torch.equal(getattr(got, f), getattr(plain, f))
+                   for f in ("boxes", "scores", "labels", "valid"))
+        boxes, valid = calls[0][:2] if calls else (None, None)
+        rec = {"phase": f"{model}_classes", "model": model_title(model),
+               "num_classes": SSD_CLASSES, "image_size": list(cfg.image_size),
+               "candidates_per_image": (SSD_CLASSES - 1)
+               * cfg.ssd_topk_per_class,
+               "k1_calls": [list(c[0].shape) for c in calls],
+               "valid_candidates_per_image": valid.view(
+                   4, -1).sum(-1).tolist() if valid is not None else None,
+               "detections": int(got.valid.sum()),
+               "same_as_plain": same, "served_batches": batches,
+               "served_detections": sum(len(r["detections"])
+                                        for r in results if r),
+               "launches_forward": launched, "launches_served": served,
+               "card": card}
+        emit(rec)
+        check_ssd_segments(model, calls, 4, cfg)
+        if not (same and launched.get("nms") == 1 and batches >= 1
+                and served.get("nms") == batches
+                and rec["candidates_per_image"] > nms.MAX_BOXES
+                and rec["detections"] > 0):
+            raise AssertionError(f"{model}_classes: {rec}")
+        captured.append((f"{model}_classes", calls))
+        paths[f"{model}_classes"] = {k: launched.get(k, 0) + served.get(k, 0)
+                                     for k in KERNELS}
+    return paths
+
+
+def ssd_phases(torch, card, dev, captured):
+    """Phase 18: ``ssd_reference`` and ``ssdlite_reference``; both
+    families served (batch 4, 64 images, 8 threads, with breakdowns; each
+    batch's K1 inputs into ``captured``), trained streamed under their own
+    policies (3 + 20 steps) and cached (K = 8, a replay held to the bit
+    against its eager steps), at 32 classes (``ssd_classes_phase``), and
+    driven end to end (``one_stage_driver_phase`` on their canvases).
+    Returns the launches by path and the cached cells."""
+    for model in SSD:
+        check_ssd_reference(torch, dev, model, captured)
+    paths, cached = {}, {}
+    for model in SSD:
+        paths[phase_name(model, "serve")] = serve_slice(
+            torch, card, dev, model_config(model, num_classes=4), captured,
+            model=model)
+    for model in SSD:
+        streamed = train_slice(torch, card, dev, model=model, timed=20)
+        paths[phase_name(model, "train")] = streamed["launches"]
+        cached[model] = cached_train_slice(
+            torch, card, dev, model, timed=3,
+            streamed_images_per_s=streamed["images_per_s"])
+        del streamed
+    paths.update(ssd_classes_phase(torch, card, dev, captured))
+    for model in SSD:
+        driven_paths, calls = one_stage_driver_phase(
+            torch, card, dev, model,
+            size=tuple(model_config(model).image_size))
+        paths.update(driven_paths)
+        captured += calls
+    return paths, cached
+
 
 def main() -> int:
     import torch
@@ -5003,6 +5350,9 @@ def main() -> int:
     mobile, mobile_k2, mobile_k3, mobile_cached = mobile_phases(
         torch, card, "cuda", captured)
     cached.update(mobile_cached)
+    # Phase 18: SSD300-VGG16 and SSDLite320-MobileNetV3.
+    ssd, ssd_cached = ssd_phases(torch, card, "cuda", captured)
+    cached.update(ssd_cached)
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)] + tiled_out["nms"]
     k1 = check_nms_main_path(torch, nms, captured)
@@ -5046,6 +5396,7 @@ def main() -> int:
                    **{k: v.get(name, 0) for k, v in one_stage.items()},
                    **{k: v[name] for k, v in tiled_out["launches"].items()},
                    **{k: v.get(name, 0) for k, v in mobile.items()},
+                   **{k: v.get(name, 0) for k, v in ssd.items()},
                    # The cached_train phases' timed replays.
                    **{f"{m}_cached_train": r["launches"][name]
                       for m, r in cached.items()}}
@@ -5097,7 +5448,16 @@ def main() -> int:
                  "valid_per_segment": r["valid_per_segment"],
                  "kept_per_segment": r["kept_per_segment"]}
                  for (path, k), r in k1.items()
-                 if path.startswith("mobilenet")}),
+                 if path.startswith("mobilenet")},
+             # SSD's one segment per (image, foreground class), one call a
+             # batch, each call as the path made it.
+             ssd={f"{path}_call{k}": {
+                 "shape": r["shape"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "valid": r["valid"], "kept": r["kept"]}
+                 for (path, k), r in k1.items()
+                 if path.startswith("ssd")}),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",

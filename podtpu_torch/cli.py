@@ -184,8 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
           default="faster_rcnn",
           help="Detector family: faster_rcnn and faster_rcnn_v2 (the v2 "
                "recipe's heads), retinanet, retinanet_v2 and fcos (the "
-               "one-stage families) train; ssd and ssdlite wait for "
-               "ROADMAP.md item 14")
+               "one-stage families), ssd (SSD300-VGG16) and ssdlite "
+               "(SSDLite320-MobileNetV3), each SSD on its own canvas")
     c.opt("--test-tasks",
           help="Comma-separated CVAT task ids held out for evaluation "
                "(default keeps the seeded 80/20 split)")

@@ -5,11 +5,11 @@ Field-for-field copies of ``podtpu.core.config``'s ``ModelConfig``,
 configuration written by either package loads in the other.  The port
 builds the ``faster_rcnn`` family on ``resnet50_fpn``, v1 and the v2
 recipe (:func:`fasterrcnn_v2_config`), and on the mobile trunks
-(:func:`mobilenet_config`, :func:`mobilenet_v3_fpn_config`), and the
-one-stage ``retinanet`` (v1 and :func:`retinanet_v2_config`) and ``fcos``
-families, so far (``models.detector.make_detector`` refuses SSD); the
-other fields are carried so that saved configurations round-trip
-unchanged.
+(:func:`mobilenet_config`, :func:`mobilenet_v3_fpn_config`), the one-stage
+``retinanet`` (v1 and :func:`retinanet_v2_config`) and ``fcos`` families,
+and ``ssd`` (:func:`ssd_config`) and ``ssdlite``
+(:func:`ssdlite_config`); the other fields are carried so that saved
+configurations round-trip unchanged.
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ class ModelConfig:
 
     family: str = "faster_rcnn"
     # "resnet50_fpn", "mobilenet_v2" (one stride-32 map of 1280 channels)
-    # or "mobilenet_v3_fpn" (two stride-32 taps into a two-level FPN).
+    # or "mobilenet_v3_fpn" (two stride-32 taps into a two-level FPN);
+    # SSD's "vgg16" and SSDLite's "mobilenet_v3".
     backbone: str = "resnet50_fpn"
     backbone_depth: int = 50
     trainable_backbone_stages: int = 3
@@ -85,8 +86,9 @@ class ModelConfig:
     # One-stage families (``retinanet``, ``fcos``): IoU bands, focal loss,
     # the per-level top-k and the merged candidate pool of the single
     # class-offset NMS; the v2 recipe's GroupNorm subnets, GIoU regression
-    # and P6 from C5; FCOS's centre-sampling radius.  SSD's fields are
-    # carried for round trips.
+    # and P6 from C5; FCOS's centre-sampling radius.  SSD's default boxes
+    # (scales, ratios, steps and the head's grids), matcher threshold,
+    # hard-negative ratio and per-class candidates.
     retinanet_fg_iou: float = 0.5
     retinanet_bg_iou: float = 0.4
     focal_alpha: float = 0.25
@@ -233,6 +235,77 @@ def fcos_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
         score_thresh=0.2, nms_thresh=0.6, detections_per_image=100, **kw)
 
 
+def vgg_ssd_feature_shapes(image_size) -> Tuple[Tuple[int, int], ...]:
+    """The six head grids of the SSD VGG16 extractor at ``image_size``:
+    pools 1, 2 and 4 floor, pool 3 rounds up, then two stride-2 3x3 convs
+    padded by 1 and two unpadded 3x3 convs."""
+    def per_axis(s: int):
+        f0 = -(-(s // 2 // 2) // 2)
+        f1 = f0 // 2
+        f2 = (f1 - 1) // 2 + 1
+        f3 = (f2 - 1) // 2 + 1
+        return (f0, f1, f2, f3, f3 - 2, f3 - 4)
+    return tuple(zip(per_axis(image_size[0]), per_axis(image_size[1])))
+
+
+def ssd_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` as torchvision's ``ssd300_vgg16``: VGG16 with its extra
+    blocks, six maps, the SSD paper's scales and (at 300x300 only) steps,
+    the Caffe recipe's input (mean subtracted, times 255), score 0.01, NMS
+    0.45, 200 detections, on a 300x300 canvas unless ``kw`` gives
+    ``image_size``; ``kw`` overrides any field."""
+    image_size = kw.pop("image_size", (300, 300))
+    fields = dict(
+        family="ssd", backbone="vgg16", image_size=image_size,
+        pixel_mean=(0.48235, 0.45882, 0.40784),
+        pixel_std=(1.0 / 255.0,) * 3,
+        ssd_scales=(0.07, 0.15, 0.33, 0.51, 0.69, 0.87, 1.05),
+        ssd_aspect_ratios=((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0),
+                           (2.0,), (2.0,)),
+        ssd_steps=(8, 16, 32, 64, 100, 300) if image_size == (300, 300)
+        else (),
+        ssd_feature_shapes=vgg_ssd_feature_shapes(image_size),
+        score_thresh=0.01, nms_thresh=0.45, detections_per_image=200)
+    fields.update(kw)
+    return dataclasses.replace(cfg or ModelConfig(), **fields)
+
+
+def mobilenet_v3_feature_shapes(image_size) -> Tuple[Tuple[int, int], ...]:
+    """The six head grids of the SSDLite MobileNetV3 extractor: the C4
+    expansion tap at stride 16, then five stride-2 3x3 convs padded by 1
+    (each ``(n - 1) // 2 + 1``)."""
+    def per_axis(s: int):
+        for _ in range(4):
+            s = (s - 1) // 2 + 1
+        shapes = [s]
+        for _ in range(5):
+            s = (s - 1) // 2 + 1
+            shapes.append(s)
+        return shapes
+    return tuple(zip(per_axis(image_size[0]), per_axis(image_size[1])))
+
+
+def ssdlite_config(cfg: "ModelConfig" = None, **kw) -> "ModelConfig":
+    """``cfg`` as torchvision's ``ssdlite320_mobilenet_v3_large``:
+    MobileNetV3-Large split at the C4 expansion with depthwise extras, six
+    default boxes a location (scales 0.2 to 0.95 and 1.0, ratios 2 and 3 on
+    every map), input in [-1, 1], score 0.001, NMS 0.55, 300 candidates a
+    class and 300 detections, on a 320x320 canvas unless ``kw`` gives
+    ``image_size``; ``kw`` overrides any field."""
+    image_size = kw.pop("image_size", (320, 320))
+    fields = dict(
+        family="ssdlite", backbone="mobilenet_v3", image_size=image_size,
+        pixel_mean=(0.5, 0.5, 0.5), pixel_std=(0.5, 0.5, 0.5),
+        ssd_scales=tuple(0.2 + (0.95 - 0.2) * k / 5.0 for k in range(6))
+        + (1.0,),
+        ssd_aspect_ratios=((2.0, 3.0),) * 6, ssd_steps=(),
+        ssd_feature_shapes=mobilenet_v3_feature_shapes(image_size),
+        ssd_topk_per_class=300, score_thresh=0.001, nms_thresh=0.55,
+        detections_per_image=300)
+    fields.update(kw)
+    return dataclasses.replace(cfg or ModelConfig(), **fields)
+
+
 # Left/right joint swap of the COCO person-17 skeleton under horizontal
 # flip (nose, then eye/ear/shoulder/elbow/wrist/hip/knee/ankle L-R pairs).
 COCO_17_HFLIP_INDS = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13,
@@ -295,7 +368,8 @@ class DataConfig:
     prefetch: int = 2
     # 'miso' (hflip + vflip + photometric distortion), 'hflip', 'lsj'
     # (scale jitter 0.1-2.0 + hflip), 'multiscale' (0.5-1.25 + hflip),
-    # 'none'; 'ssd' and 'ssdlite' are not ported yet.
+    # 'ssd' (photometric distortion, zoom-out, IoU crop, hflip), 'ssdlite'
+    # (IoU crop, hflip), 'none'.
     aug_policy: str = "miso"
     hflip_prob: float = 0.5
     vflip_prob: float = 0.5

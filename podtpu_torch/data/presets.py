@@ -3,18 +3,20 @@
 Counterpart of ``podtpu/data/presets.py``: ``miso`` (hflip + vflip +
 photometric distortion, the reference pipeline's default), ``hflip``,
 ``lsj`` (large-scale jitter: a resample at a scale drawn in 0.1-2.0, then
-hflip), ``multiscale`` (the same in 0.5-1.25) and ``none``.  A policy
+hflip), ``multiscale`` (the same in 0.5-1.25), ``ssd`` (photometric
+distortion, a zoom-out on half the images, the IoU crop, hflip),
+``ssdlite`` (the IoU crop, hflip) and ``none``.  A policy
 maps ``(images [B, H, W, 3] in [0, 1], boxes [B, G, 4], valid [B, G],
 draws, masks=None, keypoints=None)`` to the augmented
 ``(images, boxes, valid, masks, keypoints)``, with one decision per image;
 mask targets ``[B, G, Hm, Wm]`` and keypoints ``[B, G, K, 3]`` follow the
 flips (a horizontal flip also permutes the keypoints by ``kp_hflip_inds``,
 a chiral skeleton's left/right swap), and each stays None when none is
-given; the jitter resamples masks and moves keypoints with the image,
-and a keypoint that leaves the canvas becomes invisible.  Its random
-numbers are the explicit tensors of :class:`AugmentDraws`
-(:func:`draw_augment` makes them from a ``torch.Generator``).  ``ssd`` and
-``ssdlite`` wait for the model whose recipe they are: item 14 (SSD).
+given; the jitter, the zoom-out and the crop resample masks and move
+keypoints with the image, and a keypoint that leaves the canvas becomes
+invisible.  Its random numbers are the explicit tensors of
+:class:`AugmentDraws` (:func:`draw_augment` makes them from a
+``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,6 @@ import torch
 from podtpu_torch.ops import image_ops as T
 
 AugmentFn = Callable
-
-# Policy -> the ROADMAP.md item that brings it.
-NOT_PORTED = {"ssd": "item 14: SSD", "ssdlite": "item 14: SSD"}
 
 # The scale range of each scale-jitter policy (the JAX package's
 # ``T.scale_jitter`` ranges).
@@ -40,13 +39,17 @@ class AugmentDraws(NamedTuple):
     photometric: T.PhotometricDraws
     # [B] scales of a scale-jitter policy (None for the others).
     scale: Optional[torch.Tensor] = None
+    # The ssd policy's zoom-out, and the IoU crop of ssd and ssdlite.
+    zoom: Optional[T.ZoomDraws] = None
+    crop: Optional[T.CropDraws] = None
 
 
 def draw_augment(generator: torch.Generator, batch: int,
-                 scale_range: Optional[Tuple[float, float]] = None
-                 ) -> AugmentDraws:
+                 scale_range: Optional[Tuple[float, float]] = None,
+                 zoom: bool = False, crop: bool = False) -> AugmentDraws:
     """One batch's draws on ``generator``'s device; with ``scale_range``
-    also a scale per image, uniform in it, drawn last."""
+    also a scale per image, uniform in it, then with ``zoom`` the
+    zoom-out's and with ``crop`` the IoU crop's draws."""
     dev = generator.device
     hf = torch.rand(batch, generator=generator, device=dev)
     vf = torch.rand(batch, generator=generator, device=dev)
@@ -56,8 +59,18 @@ def draw_augment(generator: torch.Generator, batch: int,
         lo, hi = scale_range
         scale = lo + torch.rand(batch, generator=generator,
                                 device=dev) * (hi - lo)
-    return AugmentDraws(hflip=hf, vflip=vf, photometric=photometric,
-                        scale=scale)
+    return AugmentDraws(
+        hflip=hf, vflip=vf, photometric=photometric, scale=scale,
+        zoom=T.draw_zoom(generator, batch) if zoom else None,
+        crop=T.draw_crop(generator, batch) if crop else None)
+
+
+def draw_policy(generator: torch.Generator, batch: int,
+                policy: str) -> AugmentDraws:
+    """:func:`draw_augment` with what ``policy`` reads."""
+    return draw_augment(generator, batch, SCALE_RANGES.get(policy),
+                        zoom=policy == "ssd",
+                        crop=policy in ("ssd", "ssdlite"))
 
 
 def _select(do: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -132,6 +145,37 @@ def scale_jitter_policy(images, boxes, valid, draws: AugmentDraws,
     return images, boxes, _revalidate(boxes, valid), masks, keypoints
 
 
+def ssd_policy(images, boxes, valid, draws: AugmentDraws, masks=None,
+               keypoints=None, kp_hflip_inds=None):
+    """Photometric distortion, then (where ``draws.zoom.apply < 0.5``) the
+    zoom-out, computed for every image and selected, then the IoU crop and
+    hflip; boxes narrower or lower than 1 px become invalid."""
+    images = T.photometric_distort(images, draws.photometric)
+    z = draws.zoom
+    do = z.apply < 0.5
+    zimg, zbox, zmask, zkp = T.zoom_out(images, boxes, z.ratio, z.x, z.y,
+                                        masks=masks, keypoints=keypoints)
+    images, boxes = _select(do, zimg, images), _select(do, zbox, boxes)
+    if masks is not None:
+        masks = _select(do, zmask, masks)
+    if keypoints is not None:
+        keypoints = _select(do, zkp, keypoints)
+    return ssdlite_policy(images, boxes, valid, draws, masks=masks,
+                          keypoints=keypoints, kp_hflip_inds=kp_hflip_inds)
+
+
+def ssdlite_policy(images, boxes, valid, draws: AugmentDraws, masks=None,
+                   keypoints=None, kp_hflip_inds=None):
+    """The IoU crop, then hflip; boxes narrower or lower than 1 px become
+    invalid."""
+    images, boxes, valid, masks, keypoints = T.iou_crop(
+        images, boxes, valid, draws.crop, masks=masks, keypoints=keypoints)
+    images, boxes, masks, keypoints = _flips(
+        images, boxes, draws, vflip_prob=0.0, masks=masks,
+        keypoints=keypoints, kp_hflip_inds=kp_hflip_inds)
+    return images, boxes, _revalidate(boxes, valid), masks, keypoints
+
+
 def none_policy(images, boxes, valid, draws: AugmentDraws, masks=None,
                 keypoints=None, kp_hflip_inds=None):
     return images, boxes, valid, masks, keypoints
@@ -149,18 +193,16 @@ POLICIES = {
     "hflip": hflip_policy,
     "lsj": scale_jitter_policy,
     "multiscale": scale_jitter_policy,
+    "ssd": ssd_policy,
+    "ssdlite": ssdlite_policy,
     "none": none_policy,
 }
 
 
 def get_policy(name: str) -> AugmentFn:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"podtpu_torch does not port the {name!r} augmentation policy "
-            f"yet (ROADMAP.md, {NOT_PORTED[name]})")
     if name not in POLICIES:
         raise ValueError(f"Unknown augmentation policy {name!r}; choose "
-                         f"from {sorted(POLICIES) + list(NOT_PORTED)}")
+                         f"from {sorted(POLICIES)}")
     return POLICIES[name]
 
 

@@ -118,9 +118,11 @@ def infer_tiled(
 
     ``image``: path or ``[H, W, 3]`` array (uint8, another integer type,
     or float in [0, 1]).  ``model_path``: the model directory or a file in
-    it.  ``tile_size``: the tile canvas, the model's own when None.  A
-    keypoint model's keypoints are dropped; a mask model's detections
-    carry polygons.
+    it.  ``tile_size``: the tile canvas, the model's own when None; an SSD
+    model takes only its own (its default boxes are built on its canvas's
+    ``ssd_feature_shapes``, which a new canvas does not recompute, in the
+    JAX package either).  A keypoint model's keypoints are dropped; a mask
+    model's detections carry polygons.
     """
     if spatial_devices > 1:
         raise NotImplementedError(
@@ -131,6 +133,11 @@ def infer_tiled(
         else str(model_path)
     params, frozen, cfg, _labels = load_model(model_dir)
     if tile_size is not None and (tile_size, tile_size) != cfg.image_size:
+        if cfg.family in ("ssd", "ssdlite"):
+            raise ValueError(
+                f"tile_size={tile_size}: a {cfg.family} model tiles only at "
+                f"its own canvas {tuple(cfg.image_size)} (its default boxes "
+                "follow ssd_feature_shapes, which are that canvas's)")
         cfg = dataclasses.replace(cfg, image_size=(tile_size, tile_size))
     forward, _ = build_inference_model(params, frozen, cfg, dev)
     th, tw = cfg.image_size

@@ -1,6 +1,7 @@
 """Faster R-CNN, Mask R-CNN and Keypoint R-CNN: eval forward and training
 losses; and ``make_detector``, which also builds the one-stage families
-(``models/retinanet.py``, ``models/fcos.py``).
+(``models/retinanet.py``, ``models/fcos.py``) and SSD
+(``models/ssd.py``).
 
 Counterpart of ``podtpu/models/detector.py`` (``FasterRCNN`` on the
 ``resnet50_fpn`` backbone with the MLP box head or, in the v2 recipe
@@ -47,6 +48,7 @@ from podtpu_torch.models.fpn import (BackboneWithFPN, FeaturePyramidNetwork,
 from podtpu_torch.models.resnet import (BatchNorm2d, FrozenBatchNorm2d,
                                         ResNet, variance_scaling_)
 from podtpu_torch.models.retinanet import DTYPES, PRIOR_BIAS, RetinaNet
+from podtpu_torch.models.ssd import SSD
 from podtpu_torch.ops.anchors import grid_anchors
 
 
@@ -249,14 +251,15 @@ def num_anchors(cfg: ModelConfig) -> int:
 
 
 ONE_STAGE = ("retinanet", "fcos")
+SSD_FAMILIES = ("ssd", "ssdlite")
 
 
 def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
                batch: int, num_gt: int) -> Optional[ModelDraws]:
     """The samplers' draws for ``batch`` images with ``num_gt`` gt slots
-    each, on ``generator``'s device; None for a one-stage model, which
-    draws nothing."""
-    if cfg.family in ONE_STAGE:
+    each, on ``generator``'s device; None for a one-stage or SSD model,
+    which draws nothing."""
+    if cfg.family in ONE_STAGE + SSD_FAMILIES:
         return None
     if generator is None:
         raise ValueError("training needs a torch.Generator or explicit draws")
@@ -272,12 +275,12 @@ def draw_model(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family not in ("faster_rcnn",) + ONE_STAGE:
-        return (f"family={cfg.family!r} (ROADMAP.md, item 14: SSD and its "
-                "MobileNetV3 trunk)")
+    if cfg.family not in ("faster_rcnn",) + ONE_STAGE + SSD_FAMILIES:
+        return f"family={cfg.family!r}"
+    if cfg.family in SSD_FAMILIES:
+        return None
     if cfg.backbone not in PYRAMID_LEVELS:
-        return (f"backbone={cfg.backbone!r} (ROADMAP.md, item 14: SSD and "
-                "its MobileNetV3 trunk)")
+        return f"backbone={cfg.backbone!r}"
     if cfg.family == "faster_rcnn" and cfg.backbone == "resnet50_fpn" and (
             cfg.anchors_per_location != len(cfg.anchor_ratios)
             or len(cfg.strides) != 5):
@@ -296,18 +299,23 @@ def _unsupported(cfg: ModelConfig) -> Optional[str]:
 
 
 def make_detector(cfg: ModelConfig) -> nn.Module:
-    """The model for ``cfg``: ``FasterRCNN``, ``RetinaNet`` or ``FCOS``;
-    raises ``NotImplementedError`` for what the port has not reached yet,
-    naming the ROADMAP item that brings it, and ``ValueError`` for a mask
-    head beside a keypoint head, the v2 recipe on another backbone than
-    ResNet-50-FPN, or a one-stage family with a mask or keypoint head or
-    another backbone, as the JAX package does."""
+    """The model for ``cfg``: ``FasterRCNN``, ``RetinaNet``, ``FCOS`` or
+    ``SSD``; raises ``NotImplementedError`` for a family or backbone the
+    JAX package does not have either, and ``ValueError`` for a mask head
+    beside a keypoint head, the v2 recipe on another backbone than
+    ResNet-50-FPN, a one-stage family with a mask or keypoint head or
+    another backbone, or SSD with a mask or keypoint head or another
+    backbone than its own, as the JAX package does."""
     if cfg.family in ONE_STAGE and (cfg.with_mask or cfg.with_keypoints
                                     or cfg.backbone != "resnet50_fpn"):
         raise ValueError(
             f"family={cfg.family!r} supports neither with_mask/"
             "with_keypoints (no RoI stage) nor non-ResNet backbones "
             "(needs the P3-P7 FPN)")
+    if cfg.family in SSD_FAMILIES and cfg.with_keypoints:
+        raise ValueError(
+            "with_keypoints requires family='faster_rcnn' (SSD has no "
+            "RoI stage)")
     if cfg.with_mask and cfg.with_keypoints:
         raise ValueError(
             "with_mask and with_keypoints are mutually exclusive (the "
@@ -319,6 +327,12 @@ def make_detector(cfg: ModelConfig) -> nn.Module:
             "family='faster_rcnn_v2' requires the ResNet-50-FPN backbone "
             "(torchvision has no v2 recipe for the mobilenet extractors, "
             "and their FPN/head wiring differs)")
+    if cfg.family in SSD_FAMILIES:
+        if cfg.with_mask:
+            raise ValueError(
+                "family='ssd'/'ssdlite' supports no mask head (SSD has no "
+                "RoI stage; use family='faster_rcnn' with with_mask)")
+        return SSD(cfg)
     missing = _unsupported(cfg)
     if missing is not None:
         raise NotImplementedError(f"podtpu_torch does not port {missing} "
@@ -337,10 +351,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     identity frozen and trainable BatchNorm (running statistics zeros and
     ones); a one-stage head's convs ``normal(0.01)``, its
     ``cls_logits`` bias at the prior ``-log(99)`` and its GroupNorms at
-    ones and zeros.  Draws come from ``generator`` (a CPU generator; the
-    model must be on the CPU)."""
+    ones and zeros (SSD's head convs are plain convs).  Draws come from
+    ``generator`` (a CPU generator; the model must be on the CPU)."""
+    one_stage = getattr(model, "cfg", None) is not None \
+        and model.cfg.family in ONE_STAGE
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Conv2d) and name.startswith("head."):
+        if isinstance(mod, nn.Conv2d) and one_stage \
+                and name.startswith("head."):
             with torch.no_grad():
                 mod.weight.normal_(0.0, 0.01, generator=generator)
                 if mod.bias is not None:

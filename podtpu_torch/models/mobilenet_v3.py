@@ -17,6 +17,15 @@ gate multiplies the trunk in the trunk's dtype.
 the head conv; the taps are detached only when all five are frozen.
 Frozen units keep their parameters in the optimiser, as in
 ``models/mobilenet.py``.
+
+:class:`MobileNetV3SSDLite` is the extractor of torchvision's
+``ssdlite320_mobilenet_v3_large`` (``MobileNetV3SSDLite`` of the JAX
+package): the same trunk split at block 13's expansion, whose output is
+the first of six maps (``features.0``: the stem, blocks 1-12 and that
+expansion; ``features.1``: block 13's depthwise, squeeze-excitation and
+projection as ``.0``, blocks 14 and 15, the head conv), then four extra
+blocks (``extra.{k}``: a 1x1 reduction to half the width, a 3x3 stride-2
+depthwise conv and a 1x1 conv, each normed and under ReLU6).
 """
 from __future__ import annotations
 
@@ -151,3 +160,71 @@ class MobileNetV3Body(nn.Sequential):
         if 4 < self.freeze_from:
             h, c13 = h.detach(), c13.detach()
         return [c13, h]
+
+
+# Output widths of the SSDLite extras.
+SSDLITE_EXTRAS = (512, 256, 256, 128)
+SSDLITE_OUT_CHANNELS = (672, HEAD_CHANNELS) + SSDLITE_EXTRAS
+
+
+class MobileNetV3SSDLite(nn.Module):
+    """``[B, 3, H, W]`` -> the six maps of SSDLite's heads: block 13's
+    expansion (672 channels, stride 16), the head conv (960, stride 32) and
+    the four extras.  Freeze units as :class:`MobileNetV3Body`'s; the
+    extras always train, and their norms are the trunk's."""
+
+    def __init__(self, compute_dtype: torch.dtype = torch.float32,
+                 trainable_stages: int = 3, batch_norm: bool = False):
+        super().__init__()
+        kw = dict(batch_norm=batch_norm, compute_dtype=compute_dtype)
+        part0: List[nn.Module] = [ConvNormAct(3, 16, 3, 2, act=nn.Hardswish,
+                                              **kw)]
+        part1: List[nn.Module] = []
+        cin = 16
+        for idx, (k, e, c, se, a, s) in enumerate(V3_LARGE_SETTINGS,
+                                                  start=1):
+            block = InvertedResidualV3(cin, k, e, c, se, a, s,
+                                       split_expand=idx == C4_BLOCK, **kw)
+            if idx == C4_BLOCK:
+                # torchvision's split: the expansion ends part 0, the rest
+                # of the block (no residual at stride 2) opens part 1.
+                layers = list(block.block)
+                part0.append(layers[0])
+                part1.append(nn.Sequential(*layers[1:]))
+            elif idx < C4_BLOCK:
+                part0.append(block)
+            else:
+                part1.append(block)
+            cin = c
+        part1.append(ConvNormAct(cin, HEAD_CHANNELS, 1, act=nn.Hardswish,
+                                 **kw))
+        self.features = nn.ModuleList([nn.Sequential(*part0),
+                                       nn.Sequential(*part1)])
+        extra = []
+        cin = HEAD_CHANNELS
+        for out in SSDLITE_EXTRAS:
+            mid = out // 2
+            extra.append(nn.Sequential(
+                ConvNormAct(cin, mid, 1, **kw),
+                ConvNormAct(mid, mid, 3, 2, mid, **kw),
+                ConvNormAct(mid, out, 1, **kw)))
+            cin = out
+        self.extra = nn.ModuleList(extra)
+        self.compute_dtype = compute_dtype
+        self.freeze_from = 5 - trainable_stages
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        part0, part1 = self.features
+        h = x.to(self.compute_dtype)
+        for idx, layer in enumerate(part0):
+            h = layer(h)
+            if V3_BOUNDARIES.get(idx, 99) < self.freeze_from:
+                h = h.detach()
+        c4 = h
+        h = part1(h)
+        if 4 < self.freeze_from:
+            h, c4 = h.detach(), c4.detach()
+        outs = [c4, h]
+        for block in self.extra:
+            outs.append(block(outs[-1]))
+        return outs

@@ -35,6 +35,15 @@ squeeze-excitation's ``se_fc1``/``se_fc2``, the FPN's ``lateral0..1`` and
 its ``num_batches_tracked`` has no flax counterpart: 0 on the way in,
 dropped on the way out.
 
+SSD follows ``ssd_vgg16_key_map`` (``backbone.features.{i}`` to conv4_3,
+``scale_weight`` as ``l2norm_scale``, conv5_x at ``extra.0.{1,3,5}``, fc6
+and fc7 at ``extra.0.7.{1,3}``, the extras ``extra.{k}.{0,2}``, the heads
+``head.{classification,regression}_head.module_list.{k}`` as ``head/cls{k}``
+and ``reg{k}``) and SSDLite ``ssdlite_key_map`` (block 13 split between
+``backbone.features.0.13`` and ``.1.0``, the extras ``extra.{k}.{0,1,2}``
+as ``extra{k+1}_1``, ``_dw``, ``_2`` with ``_bn1..3``, each head's ``dw``,
+``bn`` (always frozen) and ``pw``).
+
 The one-stage families follow ``retinanet_key_map``,
 ``retinanet_v2_key_map`` and ``fcos_key_map``: the FPN over C3..C5
 (``fpn/lateral3..5``, ``post3..5``) with ``extra_blocks.p6``/``.p7``
@@ -106,6 +115,30 @@ def _mobilenet_v2(prefix: str, batch: bool) -> List[Tuple[str, str, str, str]]:
                           batch)
 
 
+def _v3_block(tv: str, op: str, has_expand: bool, se: bool,
+              batch: bool) -> List[Tuple[str, str, str, str]]:
+    """An inverted residual's ``block.{j}`` at ``tv``: expansion (where the
+    widths differ), depthwise, squeeze-excitation, projection."""
+    m, j = [], 0
+    if has_expand:
+        m += _conv_norm(f"{tv}.0", f"{op}/expand", f"{op}/bn_expand", batch)
+        j = 1
+    return m + _v3_tail(tv, op, j, se, batch)
+
+
+def _v3_tail(tv: str, op: str, j: int, se: bool,
+             batch: bool) -> List[Tuple[str, str, str, str]]:
+    """A block's depthwise conv at ``tv.{j}``, then its squeeze-excitation
+    and projection."""
+    m = _conv_norm(f"{tv}.{j}", f"{op}/dw", f"{op}/bn_dw", batch)
+    if se:
+        j += 1
+        m += _layer(f"{tv}.{j}.fc1", f"{op}/se_fc1", "conv")
+        m += _layer(f"{tv}.{j}.fc2", f"{op}/se_fc2", "conv")
+    return m + _conv_norm(f"{tv}.{j + 1}", f"{op}/project",
+                          f"{op}/bn_project", batch)
+
+
 def _mobilenet_v3(batch: bool) -> List[Tuple[str, str, str, str]]:
     """The MobileNetV3-Large body of ``fasterrcnn_mobilenet_v3_large_fpn``
     and its two-level FPN."""
@@ -114,19 +147,8 @@ def _mobilenet_v3(batch: bool) -> List[Tuple[str, str, str, str]]:
     cin = 16
     for idx, (_k, e, c, se, _a, _s) in enumerate(V3_LARGE_SETTINGS,
                                                  start=1):
-        tv, op = f"{body}.{idx}.block", f"backbone/block{idx}"
-        j = 0
-        if e != cin:
-            m += _conv_norm(f"{tv}.0", f"{op}/expand", f"{op}/bn_expand",
-                            batch)
-            j = 1
-        m += _conv_norm(f"{tv}.{j}", f"{op}/dw", f"{op}/bn_dw", batch)
-        if se:
-            j += 1
-            m += _layer(f"{tv}.{j}.fc1", f"{op}/se_fc1", "conv")
-            m += _layer(f"{tv}.{j}.fc2", f"{op}/se_fc2", "conv")
-        m += _conv_norm(f"{tv}.{j + 1}", f"{op}/project", f"{op}/bn_project",
-                        batch)
+        m += _v3_block(f"{body}.{idx}.block", f"backbone/block{idx}",
+                       e != cin, se, batch)
         cin = c
     m += _conv_norm(f"{body}.16", "backbone/head", "backbone/bn_head", batch)
     for i in range(2):
@@ -134,6 +156,85 @@ def _mobilenet_v3(batch: bool) -> List[Tuple[str, str, str, str]]:
                     "conv")
         m += _layer(f"backbone.fpn.layer_blocks.{i}", f"fpn/post{i}", "conv")
     return m
+
+
+# features.{i} of VGG16's convolutions and their flax names (conv5_x
+# only in a plain ImageNet ``vgg16``; SSD holds them in ``extra.0``).
+_VGG_CONVS = tuple(zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28),
+                       ("conv1_1", "conv1_2", "conv2_1", "conv2_2",
+                        "conv3_1", "conv3_2", "conv3_3", "conv4_1",
+                        "conv4_2", "conv4_3", "conv5_1", "conv5_2",
+                        "conv5_3")))
+
+
+def _ssd_head(separable: bool) -> List[Tuple[str, str, str, str]]:
+    """SSD's per-map ``module_list.{k}`` convolutions (SSDLite's: the
+    depthwise ``.0`` with its always frozen norm, the 1x1 ``.1``)."""
+    m = []
+    for k in range(6):
+        for tv, ours in (("classification_head", f"cls{k}"),
+                         ("regression_head", f"reg{k}")):
+            port, op = f"head.{tv}.module_list.{k}", f"head/{ours}"
+            if separable:
+                m += _conv_norm(f"{port}.0", f"{op}/dw", f"{op}/bn", False)
+                m += _layer(f"{port}.1", f"{op}/pw", "conv")
+            else:
+                m += _layer(port, op, "conv")
+    return m
+
+
+def _ssd_vgg16(prefix: str) -> List[Tuple[str, str, str, str]]:
+    """SSD300-VGG16 (``ssd_vgg16_key_map``) or, with ``prefix``
+    "features", a plain ImageNet ``vgg16``'s thirteen convolutions."""
+    if prefix == "features":
+        return [t for i, ours in _VGG_CONVS
+                for t in _layer(f"features.{i}", f"backbone/{ours}", "conv")]
+    m = [t for i, ours in _VGG_CONVS[:10]
+         for t in _layer(f"backbone.features.{i}", f"backbone/{ours}",
+                         "conv")]
+    m.append(("backbone.scale_weight", "params", "backbone/l2norm_scale",
+              "vector"))
+    for i, (_, ours) in zip((1, 3, 5), _VGG_CONVS[10:]):
+        m += _layer(f"backbone.extra.0.{i}", f"backbone/{ours}", "conv")
+    m += _layer("backbone.extra.0.7.1", "backbone/fc6", "conv")
+    m += _layer("backbone.extra.0.7.3", "backbone/fc7", "conv")
+    for k in range(1, 5):
+        for i, sub in ((0, 1), (2, 2)):
+            m += _layer(f"backbone.extra.{k}.{i}",
+                        f"backbone/extra{k}_{sub}", "conv")
+    return m + _ssd_head(False)
+
+
+def _ssdlite(batch: bool) -> List[Tuple[str, str, str, str]]:
+    """SSDLite320-MobileNetV3 (``ssdlite_key_map``): the trunk split at
+    block 13's expansion (``backbone.features.0.13``, the rest of the
+    block at ``features.1.0``), the extras and the separable heads; with
+    ``batch`` the trunk's and the extras' norms are trainable."""
+    m = _conv_norm("backbone.features.0.0", "backbone/stem",
+                   "backbone/bn_stem", batch)
+    cin = 16
+    for idx, (_k, e, c, se, _a, _s) in enumerate(V3_LARGE_SETTINGS,
+                                                 start=1):
+        op = f"backbone/block{idx}"
+        if idx < 13:
+            m += _v3_block(f"backbone.features.0.{idx}.block", op, e != cin,
+                           se, batch)
+        elif idx == 13:
+            m += _conv_norm("backbone.features.0.13", f"{op}/expand",
+                            f"{op}/bn_expand", batch)
+            m += _v3_tail("backbone.features.1.0", op, 0, se, batch)
+        else:
+            m += _v3_block(f"backbone.features.1.{idx - 13}.block", op,
+                           e != cin, se, batch)
+        cin = c
+    m += _conv_norm("backbone.features.1.3", "backbone/head",
+                    "backbone/bn_head", batch)
+    for k in range(1, 5):
+        tv, op = f"backbone.extra.{k - 1}", f"backbone/extra{k}"
+        m += _conv_norm(f"{tv}.0", f"{op}_1", f"{op}_bn1", batch)
+        m += _conv_norm(f"{tv}.1", f"{op}_dw", f"{op}_bn2", batch)
+        m += _conv_norm(f"{tv}.2", f"{op}_2", f"{op}_bn3", batch)
+    return m + _ssd_head(True)
 
 
 def _layer(port: str, flax: str, kind: str,
@@ -203,7 +304,14 @@ def key_map(with_mask: bool = False, with_keypoints: bool = False,
     ResNet-50-FPN, its norms trainable with ``batch_norm``.  With
     ``family`` "retinanet" (v2 with ``retinanet_head_norm``) or "fcos": the
     one-stage model, its FPN over C3..C5 (``fpn/lateral3..5``,
-    ``post3..5``, ``p6``, ``p7``) and its head."""
+    ``post3..5``, ``p6``, ``p7``) and its head.  With ``family`` "ssd":
+    SSD300-VGG16 (with ``trunk_prefix`` "features", a plain ImageNet
+    ``vgg16``'s convolutions), "ssdlite": SSDLite320-MobileNetV3, its
+    trunk's norms trainable with ``batch_norm``."""
+    if family == "ssd":
+        return _ssd_vgg16(trunk_prefix)
+    if family == "ssdlite":
+        return _ssdlite(batch_norm)
     if backbone != "resnet50_fpn":
         m = (_mobilenet_v2(trunk_prefix, batch_norm)
              if backbone == "mobilenet_v2" else _mobilenet_v3(batch_norm))
@@ -335,12 +443,16 @@ def _to_flax(kind: str, v: np.ndarray, pool_size: int) -> np.ndarray:
 
 def _flax_layout(params: Dict, frozen: Dict) -> Dict:
     """``key_map``'s arguments for the model whose flax trees these are."""
+    trunk = params.get("backbone", {})
+    if "l2norm_scale" in trunk:
+        return dict(family="ssd")
+    if "extra1_dw" in trunk:
+        return dict(family="ssdlite", batch_norm="bn_stem" in trunk)
     if "head" in params:
         return dict(family="fcos" if "ctrness" in params["head"]
                     else "retinanet",
                     retinanet_head_norm="cls_gn0" in params["head"])
     rpn = params.get("rpn_head", {})
-    trunk = params.get("backbone", {})
     return dict(backbone="mobilenet_v2" if "block17" in trunk
                 else "mobilenet_v3_fpn" if "block15" in trunk
                 else "resnet50_fpn",
@@ -371,6 +483,13 @@ def _mobile_layout(state_dict: Dict) -> Dict:
 
 def _state_dict_layout(state_dict: Dict) -> Dict:
     """``key_map``'s arguments for the model whose state dict this is."""
+    if "backbone.scale_weight" in state_dict:
+        return dict(family="ssd")
+    if "backbone.features.0.0.0.weight" in state_dict:
+        return dict(family="ssdlite", batch_norm=(
+            "backbone.features.0.0.1.num_batches_tracked" in state_dict))
+    if "features.0.weight" in state_dict:
+        return dict(family="ssd", trunk_prefix="features")
     if "head.classification_head.cls_logits.weight" in state_dict:
         fcos = "head.regression_head.bbox_ctrness.weight" in state_dict
         return dict(family="fcos" if fcos else "retinanet",
@@ -538,9 +657,11 @@ def load_pretrained(model, path: str, verbose: bool = True):
     FCOS's ``conv.{3i}`` and ``conv.{3i+1}``; a mis-sized ``cls_logits`` is
     skipped.  A torchvision ImageNet ``mobilenet_v2`` (``features.*``) fills
     a MobileNetV2 model's trunk, a ``fasterrcnn_mobilenet_v3_large_fpn``
-    (``backbone.body.*``) a MobileNetV3 FPN model; a checkpoint's norms
-    read as frozen ones, so their affine terms do not reach a trainable
-    norm's parameters, as in the JAX package.
+    (``backbone.body.*``) a MobileNetV3 FPN model, an ``ssd300_vgg16``
+    or ``ssdlite320_mobilenet_v3_large`` its own family's model and a plain
+    ImageNet ``vgg16`` (``features.*``) SSD300's trunk; a checkpoint's
+    norms read as frozen ones, so their affine terms do not reach a
+    trainable norm's parameters, as in the JAX package.
     """
     import os
 
@@ -583,9 +704,12 @@ def load_pretrained(model, path: str, verbose: bool = True):
             # As the JAX package recognises the layouts: a v2 Faster R-CNN
             # by its 2-deep RPN tower, a RetinaNet v2 by its GroupNorms.
             layout = _state_dict_layout(state_dict)
-            if layout.get("family"):
+            if layout.get("trunk_prefix") == "features" \
+                    and layout.get("family") == "ssd":
+                name = "vgg16"
+            elif layout.get("family"):
                 name = layout["family"] + (
-                    "_v2" if layout["retinanet_head_norm"] else "")
+                    "_v2" if layout.get("retinanet_head_norm") else "")
             elif layout["backbone"] != "resnet50_fpn":
                 name = layout["backbone"]
             else:

@@ -3,13 +3,14 @@
 Counterpart of ``podtpu/ops/image_ops.py`` (``hflip``, ``vflip``,
 ``rgb_to_hsv``, ``hsv_to_rgb``, ``photometric_distort``,
 ``copy_paste_batch``, ``scale_and_place`` with its mask and keypoint forms,
-``scale_jitter``), batched with one decision per image: each
-transform is computed for the whole batch and selected per image with
-``torch.where``, as the JAX package selects inside its vmap; the resample
-takes each image's own scale and translation.  The random numbers are the
-explicit tensors of :class:`PhotometricDraws`, copy-paste's ``[B, G]``
-uniforms and the jitter's ``[B]`` scales; :func:`draw_photometric` makes
-the first from a ``torch.Generator``.
+``scale_jitter``, ``zoom_out``, ``iou_crop``), batched with one decision
+per image: each transform is computed for the whole batch and selected per
+image with ``torch.where``, as the JAX package selects inside its vmap; the
+resample takes each image's own scale and translation.  The random numbers
+are the explicit tensors of :class:`PhotometricDraws`, copy-paste's ``[B,
+G]`` uniforms, the jitter's ``[B]`` scales, :class:`ZoomDraws` and
+:class:`CropDraws`; :func:`draw_photometric`, :func:`draw_zoom` and
+:func:`draw_crop` make them from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import contextlib
 from typing import NamedTuple
 
 import torch
+
+from podtpu_torch.ops.boxes import box_iou
 
 # torchvision RandomPhotometricDistort ranges.
 BRIGHTNESS = (0.875, 1.125)
@@ -317,3 +320,129 @@ def scale_jitter(images: torch.Tensor, boxes: torch.Tensor,
         keypoints = scale_and_place_keypoints(keypoints, scale, zero, zero,
                                               h, w)
     return images, boxes, masks, keypoints
+
+
+class ZoomDraws(NamedTuple):
+    """Per image ``[B]``: zoom out where ``apply < 0.5``, by the side
+    ratio ``ratio`` in [1, 4), placed at ``(x, y)`` fractions in [0, 1) of
+    the free canvas."""
+    apply: torch.Tensor
+    ratio: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+
+
+def draw_zoom(generator: torch.Generator, batch: int) -> ZoomDraws:
+    dev = generator.device
+
+    def u():
+        return torch.rand(batch, generator=generator, device=dev)
+
+    return ZoomDraws(apply=u(), ratio=1.0 + u() * 3.0, x=u(), y=u())
+
+
+def zoom_out(images: torch.Tensor, boxes: torch.Tensor, ratio: torch.Tensor,
+             x: torch.Tensor, y: torch.Tensor, masks=None, keypoints=None):
+    """Random zoom-out: each image of ``[B, H, W, C]`` shrunk by ``1 /
+    ratio`` and placed at ``x * (W - W / ratio)``, ``y * (H - H / ratio)``
+    on a zero canvas; boxes, ``[B, G, Hm, Wm]`` masks and ``[B, G, K, 3]``
+    keypoints follow (boxes are not clipped).  Returns ``(images, boxes,
+    masks, keypoints)``."""
+    h, w = images.shape[1], images.shape[2]
+    s = 1.0 / ratio
+    tx = x * (w - w * s)
+    ty = y * (h - h * s)
+    images, boxes = scale_and_place(images, boxes, s, tx, ty)
+    if masks is not None:
+        masks = scale_and_place_masks(masks, s, tx, ty, h, w)
+    if keypoints is not None:
+        keypoints = scale_and_place_keypoints(keypoints, s, tx, ty, h, w)
+    return images, boxes, masks, keypoints
+
+
+# The IoU floors of RandomIoUCrop; -1 draws "no crop".
+CROP_MIN_IOUS = (0.0, 0.1, 0.3, 0.5, 0.7, 0.9, -1.0)
+CROP_TRIALS = 20
+
+
+class CropDraws(NamedTuple):
+    """Per image: the index ``[B]`` (int64) of the IoU floor in
+    ``CROP_MIN_IOUS``, and per trial ``[B, T]`` the crop's width and
+    height fractions in [0.3, 1) and its origin's fractions in [0, 1) of
+    the free canvas."""
+    option: torch.Tensor
+    w: torch.Tensor
+    h: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+
+
+def draw_crop(generator: torch.Generator, batch: int,
+              trials: int = CROP_TRIALS) -> CropDraws:
+    dev = generator.device
+
+    def u(lo=0.0, hi=1.0):
+        x = torch.rand((batch, trials), generator=generator, device=dev)
+        return lo + x * (hi - lo)
+
+    option = torch.randint(len(CROP_MIN_IOUS), (batch,), generator=generator,
+                           device=dev)
+    return CropDraws(option=option, w=u(0.3, 1.0), h=u(0.3, 1.0), x=u(),
+                     y=u())
+
+
+def iou_crop(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+             draws: CropDraws, masks=None, keypoints=None):
+    """SSD's IoU-constrained random crop, per image: of the ``T`` drawn
+    crops, the first whose aspect ratio lies in [0.5, 2], which holds a
+    valid box's centre and whose best IoU with a valid box reaches the
+    drawn floor is resampled onto the canvas; boxes (clipped), masks and
+    keypoints follow, and boxes whose centres fall outside it become
+    invalid.  With no such crop, or the floor -1, the image stays (an
+    identity resample).  Every decision stays on the device.  Returns
+    ``(images, boxes, valid, masks, keypoints)``."""
+    hh, ww = images.shape[1], images.shape[2]
+    h, w = float(hh), float(ww)
+    min_iou = torch.full(draws.option.shape, CROP_MIN_IOUS[-1],
+                         dtype=torch.float32, device=images.device)
+    for i, v in enumerate(CROP_MIN_IOUS[:-1]):
+        min_iou = torch.where(draws.option == i, v, min_iou)
+    cw = draws.w * w
+    ch = draws.h * h
+    ar = cw / ch
+    ar_ok = (ar >= 0.5) & (ar <= 2.0)
+    cx = draws.x * (w - cw)
+    cy = draws.y * (h - ch)
+    crops = torch.stack([cx, cy, cx + cw, cy + ch], -1)       # [B, T, 4]
+    ious = torch.where(valid[:, None, :], box_iou(crops, boxes),
+                       torch.full((), -1.0, device=images.device))
+    centre_x = (boxes[..., 0] + boxes[..., 2]) / 2
+    centre_y = (boxes[..., 1] + boxes[..., 3]) / 2
+    inside = ((centre_x[:, None, :] >= crops[..., 0:1])
+              & (centre_x[:, None, :] < crops[..., 2:3])
+              & (centre_y[:, None, :] >= crops[..., 1:2])
+              & (centre_y[:, None, :] < crops[..., 3:4])
+              & valid[:, None, :])                             # [B, T, G]
+    ok = ar_ok & inside.any(2) & (ious.amax(2) >= min_iou[:, None])
+    first = torch.argmax(ok.to(torch.uint8), 1)                # [B]
+    do_crop = ok.any(1) & (min_iou >= 0.0)
+    crop = torch.gather(crops, 1, first[:, None, None].expand(-1, 1, 4))[:, 0]
+    one = torch.ones((), device=images.device)
+    scale = torch.where(do_crop, torch.minimum(h / (crop[:, 3] - crop[:, 1]),
+                                               w / (crop[:, 2] - crop[:, 0])),
+                        one)
+    tx = torch.where(do_crop, -crop[:, 0] * scale, one - 1.0)
+    ty = torch.where(do_crop, -crop[:, 1] * scale, one - 1.0)
+    images, boxes = scale_and_place(images, boxes, scale, tx, ty)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    boxes = torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
+                         y2.clamp(0, h)], -1)
+    first_inside = torch.gather(
+        inside, 1, first[:, None, None].expand(-1, 1, inside.shape[2]))[:, 0]
+    keep = torch.where(do_crop[:, None], first_inside, valid)
+    if masks is not None:
+        masks = scale_and_place_masks(masks, scale, tx, ty, hh, ww)
+    if keypoints is not None:
+        keypoints = scale_and_place_keypoints(keypoints, scale, tx, ty, hh,
+                                              ww)
+    return images, boxes, keep & valid, masks, keypoints

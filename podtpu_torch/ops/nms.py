@@ -165,6 +165,29 @@ def batched_nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
                              iou_threshold, valid, presorted=presorted)
 
 
+def class_segments_nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
+                            iou_threshold: float) -> torch.Tensor:
+    """Class-aware NMS of ``B`` images' per-class candidates: ``[B, K, N,
+    4]`` boxes and ``[B, K, N]`` validity of classes ``1..K``, each class's
+    boxes already in score order (descending, ties in index order) ->
+    ``[B, K, N]`` keep mask.  Each (image, class) is one segment, all
+    ``B * K`` in one kernel launch, so no segment is larger than one
+    class's ``N``.  Each box is shifted by its class times ``m + 1``, with
+    ``m`` the largest coordinate of the image's valid boxes of every
+    class, the offset :func:`batched_nms_keep` gives the image's merged
+    pool: every pair's IoU is taken on the same floats as there, and since
+    classes never suppress each other, the flags are the merged pool's."""
+    b, k = valid.shape[:2]
+    coords = torch.where(valid[..., None], boxes, torch.zeros_like(boxes))
+    max_coord = coords.amax(dim=(1, 2, 3)) + 1.0              # [B]
+    classes = torch.arange(1, k + 1, device=boxes.device).to(boxes.dtype)
+    shifted = boxes + (classes[None, :] * max_coord[:, None])[..., None, None]
+    keep = nms_keep_segments(shifted.reshape(b * k, -1, 4), None,
+                             iou_threshold, valid.reshape(b * k, -1),
+                             presorted=True)
+    return keep.reshape(valid.shape)
+
+
 def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy NMS keep mask ``[N]`` over ``[N, 4]`` xyxy boxes, in the

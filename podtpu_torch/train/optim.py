@@ -22,9 +22,11 @@ optimisers whose updates equal those chains:
 ``norm_weight_decay`` becomes a second parameter group.  Frozen ResNet
 stages are not in the optimiser at all (they have ``requires_grad=False``),
 so they get neither a gradient nor an update, as under ``optax.masked``.
-The JAX package's mask names ResNet's modules only, so a mobile trunk's
-frozen units stay in its chain: ``stop_gradient`` gives them zero
-gradients, and weight decay and momentum still move them.  The port's
+The JAX package's mask names ResNet's modules only (and, through its
+``"conv1"`` prefix, SSD VGG16's ``conv1_1`` and ``conv1_2``), so a mobile
+trunk's and VGG16's other frozen units stay in its chain:
+``stop_gradient`` gives them zero gradients, and weight decay and
+momentum still move them.  The port's
 mobile models keep them in the optimiser too, and :func:`apply_optimizer`
 gives a parameter that autograd did not reach (a frozen unit's, behind a
 ``detach``) a zero gradient, where torch's optimisers would skip it.
@@ -54,10 +56,16 @@ from podtpu_torch.core.config import ModelConfig, TrainConfig
 
 def trainable_mask_fn(model_cfg: ModelConfig) -> Callable[[str], bool]:
     """Predicate on the port's parameter names: False for the parameters of
-    frozen backbone components (stem, then layer1, ...)."""
+    frozen backbone components (stem, then layer1, ...).  The JAX mask's
+    prefixes are ResNet's flax names; on SSD's VGG16 its ``"conv1"`` takes
+    ``conv1_1`` and ``conv1_2`` (the port's ``backbone.features.0`` and
+    ``.2``) out of the optimiser whenever a stage is frozen, and matches
+    nothing else of it."""
     frozen_stages = 5 - model_cfg.trainable_backbone_stages
     prefixes = []
-    if frozen_stages >= 1:
+    if frozen_stages >= 1 and model_cfg.backbone == "vgg16":
+        prefixes += ["backbone.features.0.", "backbone.features.2."]
+    elif frozen_stages >= 1:
         prefixes += ["backbone.body.conv1.", "backbone.body.bn1."]
     for s in range(1, frozen_stages):
         prefixes.append(f"backbone.body.layer{s}.")
@@ -72,9 +80,10 @@ def norm_param_mask(name: str, norms=()) -> bool:
     """True for trainable normalisation parameters: those named in
     ``norms`` (the model's GroupNorm weights and biases, which carry
     torchvision's names), GroupNorm scale and bias of modules named ``gn*``
-    or ``*_gn*``, and SSD's ``l2norm_scale``.  Frozen BatchNorm holds
-    buffers, so it never reaches the optimiser."""
-    return name in norms or any(
+    or ``*_gn*``, and SSD's ``l2norm_scale`` (the port's
+    ``backbone.scale_weight``).  Frozen BatchNorm holds buffers, so it
+    never reaches the optimiser."""
+    return name in norms or name == "backbone.scale_weight" or any(
         k.startswith("gn") or "_gn" in k or k == "l2norm_scale"
         for k in name.split("."))
 

@@ -14,9 +14,9 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from podtpu_torch.core.config import Config
-from podtpu_torch.data.presets import (SCALE_RANGES, AugmentDraws,
-                                       augment_batch_policy, draw_augment,
-                                       get_policy, policy_kwargs)
+from podtpu_torch.data.presets import (AugmentDraws, augment_batch_policy,
+                                       draw_policy, get_policy,
+                                       policy_kwargs)
 from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.detector import ModelDraws, draw_model
 from podtpu_torch.models.resnet import batch_statistics
@@ -43,14 +43,14 @@ class TrainDraws(NamedTuple):
 def draw_train(generator: torch.Generator, cfg: Config,
                batch: Dict[str, torch.Tensor]) -> TrainDraws:
     """Every random number of one step for ``batch``, on ``generator``'s
-    device (a scale per image under a scale-jitter policy)."""
+    device (a scale per image under a scale-jitter policy, the zoom-out's
+    and the IoU crop's under ``ssd`` and ``ssdlite``)."""
     b, g = batch["boxes"].shape[:2]
     cp = None
     if cfg.data.copy_paste:
         cp = torch.rand((b, g), generator=generator, device=generator.device)
     return TrainDraws(
-        augment=draw_augment(generator, b,
-                             SCALE_RANGES.get(cfg.data.aug_policy)),
+        augment=draw_policy(generator, b, cfg.data.aug_policy),
         model=draw_model(generator, cfg.model, b, g), copy_paste=cp)
 
 

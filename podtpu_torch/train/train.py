@@ -24,8 +24,10 @@ come from a ``torch.Generator`` on the model's device seeded from ``(seed,
 epoch)``, drawn in step order (a group's before its replay), so a resumed
 run draws what the straight run drew; ``draws`` replaces them with the
 caller's.  ``backbone`` takes the JAX package's spellings
-(``mobilenet_v2``, ``mobilenet_v3_fpn``, ``mobilenet_v3_320_fpn``); from
-scratch a mobile trunk's frozen norms become trainable BatchNorm
+(``mobilenet_v2``, ``mobilenet_v3_fpn``, ``mobilenet_v3_320_fpn``) and
+``family`` ``ssd`` and ``ssdlite`` switch to :func:`ssd_config` and
+:func:`ssdlite_config`, each with its own canvas; from scratch a mobile
+trunk's frozen norms (SSDLite's too) become trainable BatchNorm
 (``backbone_norm="batch"``), as torchvision's constructors choose for an
 untrained trunk.
 """
@@ -46,7 +48,8 @@ from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
                                       mobilenet_config,
                                       mobilenet_v3_fpn_config,
                                       model_config_from_dict,
-                                      retinanet_config, retinanet_v2_config)
+                                      retinanet_config, retinanet_v2_config,
+                                      ssd_config, ssdlite_config)
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.core.profiling import start_trace, stop_trace
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
@@ -61,6 +64,7 @@ from podtpu_torch.data.loader import Loader
 from podtpu_torch.data.project import Project
 from podtpu_torch.infer.inference import load_inference_model, resolve_device
 from podtpu_torch.models.detector import init_parameters, make_detector
+from podtpu_torch.models.resnet import FrozenBatchNorm2d
 from podtpu_torch.models.weights import load_pretrained
 from podtpu_torch.shared.utils import now_as_str
 from podtpu_torch.train import checkpoints as ckpt
@@ -154,8 +158,8 @@ MOBILE_TRUNKS = ("mobilenet_v2", "mobilenet_v3_fpn", "mobilenet_v3")
 def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
                    num_devices) -> None:
     """The JAX package's ``ValueError``s for invalid combinations, then a
-    ``NotImplementedError`` naming the ROADMAP.md item for what the port
-    does not train yet."""
+    ``NotImplementedError`` for what the port does not train (naming the
+    ROADMAP.md item where one brings it)."""
     fam = {"faster_rcnn_v2": "faster_rcnn",
            "retinanet_v2": "retinanet"}.get(family, family) \
         or model_cfg.family
@@ -197,11 +201,11 @@ def _check_request(model_cfg, family, backbone, with_mask, with_keypoints,
             "family='faster_rcnn_v2' requires the ResNet-50-FPN backbone "
             "(torchvision has no v2 recipe for the mobilenet extractors)")
     missing = None
-    if fam in _TIED_BACKBONE:
-        missing = f"family={fam!r} (item 14: SSD and its MobileNetV3 trunk)"
-    elif fam not in ("faster_rcnn", "retinanet", "fcos"):
+    if fam not in ("faster_rcnn", "retinanet", "fcos") + tuple(
+            _TIED_BACKBONE):
         missing = f"family={fam!r}"
-    elif net not in ("resnet50_fpn",) + MOBILE_SPELLINGS:
+    elif fam not in _TIED_BACKBONE \
+            and net not in ("resnet50_fpn",) + MOBILE_SPELLINGS:
         missing = f"backbone={net!r}"
     elif num_devices is not None and num_devices > 1:
         missing = f"num_devices={num_devices} (item 18: data parallelism)"
@@ -273,6 +277,10 @@ def train(project: Project,
         model_cfg = retinanet_config(model_cfg)
     elif family == "fcos" and model_cfg.family != "fcos":
         model_cfg = fcos_config(model_cfg)
+    elif family in _TIED_BACKBONE and model_cfg.family != family:
+        # SSD300 and SSDLite320 carry their own canvases (300, 320).
+        model_cfg = (ssd_config if family == "ssd"
+                     else ssdlite_config)(model_cfg)
     if backbone == "mobilenet_v2" and model_cfg.backbone != "mobilenet_v2":
         # The reference's MobileNetV2 single-map Faster R-CNN.
         model_cfg = mobilenet_config(model_cfg)
@@ -429,9 +437,12 @@ def train(project: Project,
     model = model.to(dev, memory_format=torch.channels_last)
     if not pretrained and restored is None \
             and cfg.train.calibrate_bn is not False \
-            and cfg.model.backbone_norm != "batch":
+            and cfg.model.backbone_norm != "batch" \
+            and any(isinstance(m, FrozenBatchNorm2d)
+                    for m in model.modules()):
         # From scratch: set the FrozenBN statistics from one real batch
-        # when the feature taps vanish ("auto") or always (True).
+        # when the feature taps vanish ("auto") or always (True); SSD's
+        # VGG16 has no norm to set.
         sample = dataset.load_batch(
             [int(i) for i in train_idx[: max(2, min(8, batch_size))]])
         images = np.stack([s.image for s in sample])

@@ -168,9 +168,10 @@ class TestPolicies:
             assert flipped.any() and not flipped.all()
 
     def test_get_policy_and_kwargs(self):
-        for name in ("ssd", "ssdlite"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                presets.get_policy(name)
+        # Every JAX policy is ported (SSD's are held in test_torch_ssd.py).
+        assert set(presets.POLICIES) == set(jax_presets.POLICIES)
+        assert presets.get_policy("ssd") is presets.ssd_policy
+        assert presets.get_policy("ssdlite") is presets.ssdlite_policy
         with pytest.raises(ValueError):
             presets.get_policy("nope")
         assert presets.get_policy("none") is presets.none_policy

@@ -246,6 +246,8 @@ TRAIN_CASES = {
                   "--norm-weight-decay", "0"],
     "v2": ["--family", "faster_rcnn_v2"],
     "mobile_320": ["--backbone", "mobilenet_v3_320_fpn"],
+    "ssd": ["--family", "ssd"],
+    "ssdlite": ["--family", "ssdlite"],
     "v2_mask": ["--family", "faster_rcnn_v2", "--with-mask"],
     "keypoints": ["--with-keypoints", "--num-keypoints", "3",
                   "--keypoint-hflip-inds", "1,0,2",
@@ -333,10 +335,6 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
       "{models}", "--model", "m", "--spatial-devices", "2"], "item 20"),
     (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
     (["serve", "--model", "m", "--exported"], "item 17"),
-    (["train-object-detector", "-t", "5", "--family", "ssd"],
-     "item 14"),
-    (["train-object-detector", "-t", "5", "--family", "ssdlite"],
-     "item 14"),
     (["train-object-detector", "-t", "5", "--num-devices", "2"], "item 18"),
 ])
 def test_unported_raise(cvat_env, tmp_path, argv, item):

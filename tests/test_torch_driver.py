@@ -507,9 +507,6 @@ class TestResume:
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(family="ssd"), "item 14"),
-    (dict(family="ssdlite"), "item 14"),
-    (dict(family="ssdlite", backbone="mobilenet_v3"), "item 14"),
     (dict(num_devices=2), "item 18"),
 ])
 def test_unported_options_raise(runs, tmp_path, kwargs, item):

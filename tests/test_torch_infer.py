@@ -44,6 +44,7 @@ from podtpu_torch.train import train as port_train
 from tests.conftest import tiny_config
 from tests.synthetic import make_project
 from tests.test_torch_data import port_project
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 LABELS = ["particle", "bubble"]
 THRESHOLD = 0.45

@@ -8,8 +8,9 @@ train step with masks and copy-paste fed the draws of the JAX step's key
 (losses 1e-5, each gradient 2e-3 of its tensor's largest, parameters
 1e-6).  Copy-paste in both forms, the policies with masks, the dataset's
 mask targets and ``collate`` agree exactly; the mask head's names agree
-with ``podtpu.models.weights.convert_torchvision_state_dict``.  One JAX
-``init_variables`` compile serves the file.
+with ``podtpu.models.weights.convert_torchvision_state_dict``.  The
+weights are the port's seeded initialisation (``port_init_variables``:
+flax's initialisers, without JAX's ``init_variables`` compile).
 """
 import dataclasses
 import re
@@ -26,7 +27,6 @@ from podtpu.data.annotation import PolygonAnnotation as JaxPolygon
 from podtpu.data.annotation import RectangleAnnotation as JaxRect
 from podtpu.data import dataset as jax_dataset
 from podtpu.models import roi_heads as jax_rh
-from podtpu.models.detector import init_variables
 from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.models.weights import convert_torchvision_state_dict
 from podtpu.ops import image_ops as jax_T
@@ -41,18 +41,15 @@ from podtpu_torch.data.annotation import (PolygonAnnotation,
 from podtpu_torch.data.image import ImageMetadata
 from podtpu_torch.data.project import Project
 from podtpu_torch.models import roi_heads as rh
-from podtpu_torch.models.detector import ModelDraws, make_detector, num_anchors
+from podtpu_torch.models.detector import (ModelDraws, init_parameters,
+                                          make_detector, num_anchors)
 from podtpu_torch.models.weights import (flax_from_state_dict, key_map,
                                          state_dict_from_flax)
 from podtpu_torch.ops import image_ops as T
 from podtpu_torch.train.optim import make_optimizer
 from podtpu_torch.train.step import TrainDraws, make_train_step
-from tests.conftest import tiny_config
-from tests.synthetic import make_project
-from tests.test_torch_augment import jax_augment_draws
-from tests.test_torch_train_ops import batch_sampler_draws, gt_batch
-
-B, G, LR = 2, 8, 0.005
+# Defined before this file's imports of other test files, which import
+# it back.
 # Torch's CPU threads in the port's heaviest test files.  Run in 6 xdist
 # workers on 8 cores, each worker's default of one thread a core
 # oversubscribes the machine: capped at 2, the port's test files took 235 s
@@ -68,6 +65,26 @@ def torch_threads():
     torch.set_num_threads(TORCH_THREADS)
     yield
     torch.set_num_threads(before)
+
+
+def port_init_variables(mcfg, seed):
+    """Flax trees (numpy) of the port's seeded initialisation of the
+    JAX config ``mcfg``'s model: ``models.detector.init_parameters`` draws
+    from flax's initialisers, and JAX's own ``init_variables`` compiles the
+    model, some 12 s a config."""
+    model = make_detector(config_from_dict(
+        {"model": dataclasses.asdict(mcfg)}).model)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    params, frozen = flax_from_state_dict(model.state_dict())
+    return {"params": params, "frozen": frozen}
+
+
+from tests.conftest import tiny_config
+from tests.synthetic import make_project
+from tests.test_torch_augment import jax_augment_draws
+from tests.test_torch_train_ops import batch_sampler_draws, gt_batch
+
+B, G, LR = 2, 8, 0.005
 
 
 def t(a):
@@ -109,9 +126,7 @@ def make_batch(seed, b=B, size=128):
 def pair():
     """(JAX config, its variables as numpy, the port's config, model)."""
     jcfg = jax_config(copy_paste=True)
-    variables = jax.tree.map(np.asarray, jax.device_get(dict(
-        init_variables(jax_make_detector(jcfg.model),
-                       jax.random.PRNGKey(0)))))
+    variables = port_init_variables(jcfg.model, 0)
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     return jcfg, variables, cfg
 
@@ -424,9 +439,12 @@ def test_policies_with_masks(policy):
 
 
 def test_unported_policies_name_their_item():
-    for name, item in (("ssd", "item 14"), ("ssdlite", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            presets.get_policy(name)
+    """No policy is left unported: each JAX policy name has the port's,
+    and an unknown name is refused as in JAX."""
+    for name in jax_presets.POLICIES:
+        assert presets.get_policy(name) is presets.POLICIES[name]
+    with pytest.raises(ValueError, match="Unknown augmentation policy"):
+        presets.get_policy("ssd300")
 
 
 # -- dataset mask targets -----------------------------------------------------

@@ -1,7 +1,8 @@
 """The podtpu_torch detector against the JAX FasterRCNN (CPU, float32).
 
-One set of weights (flax ``init_variables`` at ``tiny_config`` sizes, 4
-classes) drives both models through the weight bridge.  Backbone, FPN and
+One set of weights (the port's seeded flax-style initialisation,
+``tests/test_torch_mask.py::port_init_variables``, at ``tiny_config``
+sizes, 4 classes) drives both models through the weight bridge.  Backbone, FPN and
 RPN outputs agree to rtol/atol 1e-4; proposal selection and postprocess, fed
 the JAX stage's own inputs, agree exactly in validity and labels and to 1e-4
 in boxes and scores; the whole eval forward agrees to 1e-3 in boxes.
@@ -17,7 +18,6 @@ import torch
 
 from podtpu.models import roi_heads as jax_rh
 from podtpu.models import rpn as jax_rpn
-from podtpu.models.detector import init_variables
 from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.models.weights import convert_torchvision_state_dict
 from podtpu.ops.anchors import grid_anchors
@@ -33,6 +33,8 @@ from podtpu_torch.models.weights import (flax_from_state_dict,
 from podtpu_torch.shared import msgpack
 from podtpu_torch.train import checkpoints
 from tests.conftest import tiny_config
+from tests.test_torch_mask import (port_init_variables,  # noqa: F401
+                                   torch_threads)
 
 
 @pytest.fixture(scope="module")
@@ -40,8 +42,7 @@ def pair():
     """(jax model, jax variables as numpy, port model, port config)."""
     jcfg = dataclasses.replace(tiny_config().model, num_classes=4)
     jmodel = jax_make_detector(jcfg)
-    variables = init_variables(jmodel, jax.random.PRNGKey(0))
-    variables = jax.tree.map(np.asarray, jax.device_get(dict(variables)))
+    variables = port_init_variables(jcfg, 0)
     cfg = model_config_from_dict(dataclasses.asdict(jcfg))
     model = make_detector(cfg)
     sd = state_dict_from_flax(variables["params"], variables["frozen"])
@@ -257,7 +258,9 @@ class TestEvalForward:
         assert {type(m) for m in resnet.modules()
                 if isinstance(m, (BatchNorm2d, FrozenBatchNorm2d))} == {
             FrozenBatchNorm2d}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # SSD is ported; on another backbone than its own it is refused,
+        # as the JAX model refuses it.
+        with pytest.raises(ValueError, match="does not support backbone"):
             make_detector(ModelConfig(family="ssd"))
         # The v2 recipe is ported, its normed mask tower too.
         v2 = make_detector(model_config_from_dict(dataclasses.asdict(

@@ -25,6 +25,7 @@ from podtpu_torch.models import rpn
 from podtpu_torch.ops import nms
 from tests.conftest import tiny_config
 from tests.test_ops_boxes import random_boxes
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 
 def rpn_like(seed, s=5, n=256):

@@ -1,8 +1,9 @@
 """RetinaNet v1 and v2 in podtpu_torch against podtpu (CPU).
 
 ``tests/conftest.py::tiny_config`` sizes (128x128 canvas, float32), 4
-classes.  The same numpy-seeded inputs and the same weights (flax
-``init_variables`` through the port's weight bridge) go to both packages.
+classes.  The same numpy-seeded inputs and the same weights (the port's
+seeded flax-style initialisation, ``tests/test_torch_mask.py::
+port_init_variables``, through the bridge) go to both packages.
 Random weights score every class near the prior 0.01, under the 0.05
 threshold, so the eval tests lift the scores (``lift``): ``cls_logits``
 gets bias 0 and, in v1, its kernel is scaled by 100, which spreads the
@@ -50,7 +51,6 @@ from podtpu.models import fpn as jax_fpn
 from podtpu.models import resnet as jax_resnet
 from podtpu.models import retinanet as jax_retinanet
 from podtpu.models import weights as jax_weights
-from podtpu.models.detector import init_variables
 from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.models.rpn import optax_sigmoid_bce
 from podtpu.ops import boxes as jax_boxes
@@ -79,7 +79,8 @@ from tests.synthetic import make_project
 from tests.test_torch_augment import jax_augment_draws
 from tests.test_torch_data import port_project
 from tests.test_torch_infer import assert_same_annotations
-from tests.test_torch_mask import torch_threads  # noqa: F401
+from tests.test_torch_mask import (port_init_variables,  # noqa: F401
+                                   torch_threads)
 from tests.test_torch_train_ops import gt_batch
 
 B, G, LR = 2, 8, 0.005
@@ -160,8 +161,7 @@ def setup_family(name, presets=PRESETS, lifted=lift):
 def _setup_family(name, presets, lifted):
     jcfg = jax_config(name, presets)
     jmodel = jax_make_detector(jcfg.model)
-    variables = jax.tree.map(np.asarray, jax.device_get(dict(
-        init_variables(jmodel, jax.random.PRNGKey(0)))))
+    variables = port_init_variables(jcfg.model, 0)
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     return dict(name=name, jcfg=jcfg, jmodel=jmodel, raw=variables,
                 variables=lifted(variables), cfg=cfg,

@@ -21,6 +21,7 @@ from podtpu_torch.ops import _build, roi_align
 from tests.test_torch_ops import (EDGE_ROIS, STRIDES, canonical_rois,
                                   feature_levels, jax_reference)
 from tests.test_torch_train_ops import pallas_grad, xla_grad
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 
 def t(a):

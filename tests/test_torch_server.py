@@ -24,6 +24,7 @@ from podtpu_torch.infer.server import DetectionServer, make_handler
 from podtpu_torch.models.detector import init_parameters, make_detector
 from podtpu_torch.ops import _build
 from podtpu_torch.train.checkpoints import save_labels, save_model
+from tests.test_torch_mask import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LABELS = ["radiolarian", "diatom"]

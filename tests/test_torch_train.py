@@ -2,8 +2,8 @@
 
 The tiny float32 detector (``tests/conftest.py::tiny_config``, 4 classes,
 the miso policy with photometric distortion) takes one SGD step in both
-packages from the same weights (flax ``init_variables`` through the weight
-bridge), the same batch and the draws of the same JAX key.  The loss dict
+packages from the same weights (the port's seeded flax-style initialisation,
+``tests/test_torch_mask.py::port_init_variables``, through the bridge), the same batch and the draws of the same JAX key.  The loss dict
 agrees to rtol 1e-5; each parameter's gradient to 2e-3 of that tensor's
 largest gradient (float32 convolutions sum in another order, and a ReLU
 input within rounding of zero passes its gradient in one package and not
@@ -22,7 +22,6 @@ import torch
 
 from podtpu.data.presets import (augment_batch_policy, get_policy,
                                  policy_kwargs)
-from podtpu.models.detector import init_variables
 from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.train import checkpoints as jax_ckpt
 from podtpu.train.optim import make_optimizer as jax_make_optimizer
@@ -37,6 +36,8 @@ from podtpu_torch.train.step import TrainDraws, make_train_step
 from tests.conftest import tiny_config
 from tests.test_torch_augment import jax_augment_draws
 from tests.test_torch_train_ops import batch_sampler_draws, gt_batch
+from tests.test_torch_mask import (port_init_variables,  # noqa: F401
+                                   torch_threads)
 
 LR = 0.005
 B, G = 2, 8
@@ -84,8 +85,7 @@ def one_step():
     jcfg = jax_config()
     cfg = config_from_dict(dataclasses.asdict(jcfg))
     jmodel = jax_make_detector(jcfg.model)
-    variables = jax.tree.map(np.asarray, jax.device_get(dict(
-        init_variables(jmodel, jax.random.PRNGKey(0)))))
+    variables = port_init_variables(jcfg.model, 0)
     batch = make_batch(1)
     key = jax.random.PRNGKey(2)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}

@@ -45,7 +45,6 @@ from podtpu.models import roi_heads as jax_rh
 from podtpu.models import rpn as jax_rpn
 from podtpu.models import weights as jax_weights
 from podtpu.models.detector import build_model as jax_build_model
-from podtpu.models.detector import init_variables
 from podtpu.models.detector import make_detector as jax_make_detector
 from podtpu.ops import image_ops as jax_T
 from podtpu.train import checkpoints as jax_ckpt
@@ -63,7 +62,8 @@ from tests.conftest import tiny_config
 from tests.synthetic import make_project
 from tests.test_torch_augment import jax_augment_draws
 from tests.test_torch_data import port_project
-from tests.test_torch_mask import torch_threads  # noqa: F401
+from tests.test_torch_mask import (port_init_variables,  # noqa: F401
+                                   torch_threads)
 
 LABELS = ["particle", "bubble", "bead"]
 
@@ -100,8 +100,7 @@ def pairs():
     out = {}
     for i, name in enumerate(("faster", "mask")):
         jcfg = jax_config(with_mask=name == "mask")
-        v = jax.tree.map(np.asarray, jax.device_get(dict(init_variables(
-            jax_make_detector(jcfg.model), jax.random.PRNGKey(i)))))
+        v = port_init_variables(jcfg.model, i)
         v["frozen"] = random_frozen(v["frozen"], i)
         out[name] = (jcfg, v, config_from_dict(dataclasses.asdict(jcfg)))
     return out
