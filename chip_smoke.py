@@ -236,6 +236,27 @@ Phases, one JSON line each:
    the others (the ``kernels`` line's ``mobile`` entries: single-level
    RoIAlign at 1280 and 256 channels).
 
+18. SSD300-VGG16 and SSDLite320-MobileNetV3 (``ssd_phases``): references,
+   serving, streamed and cached training, 32 classes, the drivers.
+
+19. export (``export_phases``): every preset the serving cells serve
+   (``EXPORTED``: the R50-FPN families, the mobile trunks, SSD) at its
+   serving width (batch 4, bf16), its seeded model directory exported on
+   the card with ``podtpu_torch.infer.export.export_model`` (4 presets at
+   a time in worker processes: tracing is host work), loaded with
+   ``ExportedModel`` and run on the serving cell's 64 canvases beside the
+   eager model: every output equal to the bit, K1 and K2 launched as often
+   a forward, forward ms of each; one exported batch's K1 and K2 inputs
+   captured where the operators' CUDA implementations launch.  For Faster
+   and Mask R-CNN (``EXPORT_SERVED``): a subprocess replays one batch
+   without importing the port's model, training or data modules (its
+   kernels launched, its outputs the same bits), the operators' host cost
+   against direct calls (``dispatch``), and ``serve --exported`` beside the
+   live ``serve``, both through ``podtpu_torch.cli.main``, take the 64
+   requests as PNG over HTTP from 8 threads: images/s and batch latency;
+   then 8 requests one at a time, each its own batch, with equal
+   responses (the mask model's polygons).
+
 Launches under graph replay: a capture calls the kernels' wrappers, which
 count, but launches nothing; a replay launches without calling them.  The
 runner (``CachedMultiStep``) holds apart what its capture counted and adds
@@ -249,8 +270,8 @@ postprocess calls, one training step's call, one batch of
 the CLI's model, captured after the timed runs; the same for the v2
 serving batch and v2 training step, the one-stage serving batches and
 the one-stage drivers' ``evaluate_model`` and ``infer`` calls, and the
-first batch of each tiled path): as
-the path calls it and in score order, against the plain version, twice,
+first batch of each tiled path, and one exported batch of each
+preset): as the path calls it and in score order, against the plain version, twice,
 with times; K2 on the captured ``evaluate_model``, ``infer`` and CLI
 batches, on the tiled paths' first batches (at 7, and 14 for the mask
 model), on the mask and keypoint calls at 14 and on the v2 step's call
@@ -483,10 +504,11 @@ def check_nms(torch, nms, dev):
 
 def capture_nms(nms, run, limit=None):
     """The inputs of the first ``limit`` (default: every) K1 calls that
-    ``run()`` makes, as the main path hands them to ``nms_keep_batched``
-    (boxes, validity, threshold and order), cloned."""
+    ``run()`` makes, as the operator ``podtpu::nms_keep`` hands them to the
+    kernel (``nms._nms_cuda``: boxes, validity, threshold and order),
+    cloned; eager and exported programs alike."""
     calls = []
-    launch = nms.nms_keep_batched
+    launch = nms._nms_cuda
 
     def recording(boxes, valid, t, order=None):
         if limit is None or len(calls) < limit:
@@ -494,11 +516,11 @@ def capture_nms(nms, run, limit=None):
                           None if order is None else order.clone()))
         return launch(boxes, valid, t, order)
 
-    nms.nms_keep_batched = recording
+    nms._nms_cuda = recording
     try:
         run()
     finally:
-        nms.nms_keep_batched = launch
+        nms._nms_cuda = launch
     return calls
 
 
@@ -525,24 +547,32 @@ def check_nms_main_path(torch, nms, captured):
 
 def capture_roi_align(run, limit=None):
     """The inputs of the first ``limit`` (default: every) K2 calls that
-    ``run()`` makes through the box head's pooling
-    (``models.roi_heads.batched_roi_align``), cloned."""
-    from podtpu_torch.models import roi_heads
+    ``run()`` makes, as the operator ``podtpu::roi_align_fwd`` hands them
+    to the kernels (``roi_align._roi_align_cuda``), cloned: levels, boxes,
+    strides and ``batched_roi_align``'s keyword arguments; eager and
+    exported programs alike."""
+    from podtpu_torch.ops import roi_align
 
     calls = []
-    launch = roi_heads.batched_roi_align
+    launch = roi_align._roi_align_cuda
 
-    def recording(levels, boxes, strides, **kwargs):
+    def recording(levels, boxes, strides, output_size, sampling_ratio,
+                  canonical_scale, canonical_level, min_level,
+                  channels_first):
+        kwargs = dict(output_size=output_size, sampling_ratio=sampling_ratio,
+                      canonical_scale=canonical_scale,
+                      canonical_level=canonical_level, min_level=min_level,
+                      channels_first=channels_first)
         if limit is None or len(calls) < limit:
             calls.append(([f.detach().clone() for f in levels],
                           boxes.detach().clone(), tuple(strides), kwargs))
         return launch(levels, boxes, strides, **kwargs)
 
-    roi_heads.batched_roi_align = recording
+    roi_align._roi_align_cuda = recording
     try:
         run()
     finally:
-        roi_heads.batched_roi_align = launch
+        roi_align._roi_align_cuda = launch
     return calls
 
 
@@ -1316,6 +1346,39 @@ def device_profile(torch, run, reps=3, unit="forward"):
                 for key, us, count in ops]}
 
 
+SERVE_LABELS = ["radiolarian", "foraminifera", "diatom"]
+
+
+def serve_images(cfg, n=64):
+    """The serving cells' requests: ``n`` seeded uint8 canvases of
+    ``cfg``'s size."""
+    rng = np.random.default_rng(SEED)
+    h, w = cfg.image_size
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for _ in range(n)]
+
+
+def save_seeded_model(torch, cfg, model, model_dir, labels=SERVE_LABELS):
+    """``cfg``'s model with seeded random weights (a one-stage model's
+    scores lifted, ``lift_scores``; a mask model's mask logits raised by 2,
+    so that each mask covers its box and traces to a polygon) saved as a
+    model directory with its labels."""
+    from podtpu_torch.models.detector import init_parameters, make_detector
+    from podtpu_torch.train.checkpoints import save_labels, save_model
+
+    net = make_detector(cfg)
+    init_parameters(net, torch.Generator().manual_seed(SEED))
+    if model in ONE_STAGE:
+        lift_scores(torch, net)
+    if head_of(model) == "mask":
+        (logits,) = [m for n, m in net.named_modules()
+                     if n.endswith("mask_fcn_logits")]
+        with torch.no_grad():
+            logits.bias.fill_(2.0)
+    save_model(model_dir, net, cfg, labels)
+    save_labels(model_dir, labels)
+
+
 def serve_slice(torch, card, dev, cfg, captured, model="faster",
                 roi_captured=None):
     """``cfg``'s model (``model``, one of ``MODELS``: "faster", or
@@ -1330,24 +1393,14 @@ def serve_slice(torch, card, dev, cfg, captured, model="faster",
     its K2 inputs to ``roi_captured`` when given.  Returns the
     launches."""
     from podtpu_torch.infer.server import DetectionServer, make_handler
-    from podtpu_torch.models.detector import init_parameters, make_detector
     from podtpu_torch.ops import _build, nms
-    from podtpu_torch.train.checkpoints import save_labels, save_model
 
-    labels = ["radiolarian", "foraminifera", "diatom"]
-    rng = np.random.default_rng(SEED)
+    labels = SERVE_LABELS
     h, w = cfg.image_size
-    threads, per_thread = 8, 8
-    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
-              for _ in range(threads * per_thread)]
+    threads = 8
+    images = serve_images(cfg)
     with tempfile.TemporaryDirectory() as model_dir:
-        net = make_detector(cfg)
-        init_parameters(net, torch.Generator().manual_seed(SEED))
-        if model in ONE_STAGE:
-            lift_scores(torch, net)
-        save_model(model_dir, net, cfg, labels)
-        save_labels(model_dir, labels)
-        del net
+        save_seeded_model(torch, cfg, model, model_dir, labels)
         t0 = time.perf_counter()
         server = DetectionServer(model_dir, batch_size=4, device=dev)
         load_s = time.perf_counter() - t0
@@ -5213,6 +5266,432 @@ def ssd_phases(torch, card, dev, captured):
     return paths, cached
 
 
+# -- phase 19: export ---------------------------------------------------------
+
+# Every preset the serving cells serve, exported: the R50-FPN families, the
+# mobile trunks and SSD.  The first two are also served from their
+# artifacts through the CLI beside their live servers.
+EXPORTED = MODELS + MOBILE + SSD
+EXPORT_SERVED = ("faster", "mask")
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def eval_outputs(out):
+    """The exported program's dict of an eager forward's output, on the
+    host."""
+    from podtpu_torch.infer.inference import split_eval_output
+
+    det, masks, kps = split_eval_output(out)
+    outs = {"boxes": det.boxes, "scores": det.scores, "labels": det.labels,
+            "valid": det.valid, "masks": masks, "keypoints": kps}
+    return {k: v.cpu().numpy() for k, v in outs.items() if v is not None}
+
+
+def outputs_apart(got, want):
+    """Keys whose arrays differ, and the largest gap of each float
+    output."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"outputs {sorted(got)} against {sorted(want)}")
+    unequal = sorted(k for k in want if not np.array_equal(got[k], want[k]))
+    gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max())
+            for k in want if want[k].dtype.kind == "f" and want[k].size}
+    return unequal, gaps
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds a call of ``fn`` takes to enqueue its work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def dispatch_cost(torch, nms_call, roi_call):
+    """The registered operators' cost on the host: each public wrapper
+    (through ``torch.ops.podtpu``) against a direct call of the function
+    its CUDA implementation runs, on one call a path made; CUDA-event ms
+    (``time_ms``, one call at a time, so the host's part shows) and host
+    enqueue microseconds."""
+    from podtpu_torch.ops import nms, roi_align
+
+    boxes, valid, t, order = nms_call
+    levels, rois, strides, kw = roi_call
+    pairs = {
+        "nms": (lambda: nms.nms_keep_batched(boxes, valid, t, order),
+                lambda: nms._nms_cuda(boxes, valid, t, order)),
+        "roi_align_fwd": (
+            lambda: roi_align.batched_roi_align(levels, rois, strides, **kw),
+            lambda: roi_align._roi_align_cuda(levels, rois, list(strides),
+                                              **kw))}
+    out = {}
+    with torch.no_grad():
+        for name, (op, direct) in pairs.items():
+            out[name] = {"op_ms": time_ms(op), "direct_ms": time_ms(direct),
+                         "op_host_us": host_us(torch, op),
+                         "direct_host_us": host_us(torch, direct)}
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def cli_server(argv):
+    """``python -m podtpu_torch.cli serve ...`` (``argv`` after ``serve``)
+    run by ``podtpu_torch.cli.main`` in a thread of this process, on a free
+    local port; yields the server's ``DetectionServer`` and its URL, and
+    shuts the HTTP server down after."""
+    from podtpu_torch import cli
+    from podtpu_torch.infer import server
+
+    made = {}
+    http_cls, handler = server.ThreadingHTTPServer, server.make_handler
+
+    class Recorded(http_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made["httpd"] = self
+
+    def recording_handler(runner):
+        made["runner"] = runner
+        return handler(runner)
+
+    port = free_port()
+    server.ThreadingHTTPServer, server.make_handler = \
+        Recorded, recording_handler
+    thread = threading.Thread(target=cli.main, args=(
+        ["serve", *argv, "--host", "127.0.0.1", "--port", str(port)],),
+        daemon=True)
+    try:
+        thread.start()
+        t0 = time.perf_counter()
+        while "httpd" not in made:
+            if not thread.is_alive() or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"serve {argv} did not start")
+            time.sleep(0.05)
+        yield made["runner"], f"http://127.0.0.1:{port}"
+    finally:
+        server.ThreadingHTTPServer, server.make_handler = http_cls, handler
+        if "httpd" in made:
+            made["httpd"].shutdown()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError(f"serve {argv} did not stop")
+
+
+def http_detect(url, bodies, thresholds, threads=8):
+    """POST each body to ``url``/detect at its threshold from ``threads``
+    client threads; the responses in order."""
+    results = [None] * len(bodies)
+    errors = []
+
+    def client(t):
+        try:
+            for i in range(t, len(bodies), threads):
+                req = urllib.request.Request(
+                    f"{url}/detect?threshold={thresholds[i]!r}",
+                    data=bodies[i], method="POST")
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    results[i] = json.loads(resp.read())
+        except Exception as exc:  # reported below
+            errors.append(repr(exc))
+
+    ts = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    assert not any(t.is_alive() for t in ts), "client hung"
+    assert not errors, errors
+    return results
+
+
+def served_through_cli(torch, model_dir, exported, bodies, thresholds,
+                       one_by_one=8):
+    """``serve --model-dir D --model M [--exported]`` through the port's
+    CLI: 4 warm-up requests, then every body from 8 threads: images/s and
+    batch latency (p50, max); then the first ``one_by_one`` bodies again
+    from one thread, each its own batch, whose responses it returns (how
+    8 threads' requests fall into batches varies, and a batch's other
+    canvases move an image's detections by a rounding)."""
+    from podtpu_torch.ops import _build
+
+    argv = ["--model-dir", os.path.dirname(model_dir), "--model",
+            os.path.basename(model_dir)] + (["--exported"] if exported
+                                            else [])
+    with cli_server(argv) as (runner, url):
+        http_detect(url, bodies[:4], thresholds[:4], threads=4)
+        torch.cuda.synchronize()
+        runner.batch_seconds.clear()
+        served0 = runner.batches_served
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        http_detect(url, bodies, thresholds)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        lat = sorted(runner.batch_seconds)
+        batches = runner.batches_served - served0
+        results = http_detect(url, bodies[:one_by_one],
+                              thresholds[:one_by_one], threads=1)
+    return {"images_per_s": len(bodies) / wall, "wall_s": wall,
+            "batches_served": batches,
+            "batch_latency_p50_ms": statistics.median(lat) * 1e3,
+            "batch_latency_max_ms": lat[-1] * 1e3, "launches": launches,
+            "launches_per_batch": {k: v / batches
+                                   for k, v in launches.items()}}, results
+
+
+def start_replay(path, images, tmp):
+    """A fresh interpreter that loads the artifact with ``ExportedModel``
+    and runs one batch, started; :func:`finish_replay` reads it."""
+    np.save(os.path.join(tmp, "images.npy"), images)
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import numpy as np\n"
+        "from podtpu_torch.infer.export import ExportedModel\n"
+        "from podtpu_torch.ops import _build\n"
+        f"out = ExportedModel({path!r})("
+        f"np.load({os.path.join(tmp, 'images.npy')!r}))\n"
+        f"np.savez({os.path.join(tmp, 'out.npz')!r}, **out)\n"
+        "print(json.dumps({'modules': sorted(m for m in sys.modules if"
+        " m.startswith(('podtpu_torch.models', 'podtpu_torch.train',"
+        " 'podtpu_torch.data'))), 'launches': dict(_build.launches)}))\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_replay(proc, tmp):
+    """The replay's record (the port's model, training and data modules it
+    imported, our kernels' launches) and outputs."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode:
+        raise AssertionError(f"subprocess replay failed: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    with np.load(os.path.join(tmp, "out.npz")) as outs:
+        return rec, {k: outs[k] for k in outs.files}
+
+
+def export_worker(torch, models, root):
+    """Save each preset's seeded model directory under ``root`` and export
+    it on the card (``export_model``, batch 4), writing the seconds the
+    export took beside it."""
+    from podtpu_torch.infer.export import export_model
+
+    for model in models:
+        model_dir = os.path.join(root, model)
+        save_seeded_model(torch, model_config(model, num_classes=4), model,
+                          model_dir)
+        t0 = time.perf_counter()
+        export_model(model_dir, batch_size=4)
+        with open(os.path.join(model_dir, "export_seconds.json"), "w") as fp:
+            json.dump(time.perf_counter() - t0, fp)
+
+
+def export_all(models, root, workers=4):
+    """:func:`export_worker` over ``models`` in ``workers`` processes at a
+    time on the card (tracing a program is host work, some 15 s a preset);
+    returns each preset's export seconds and the phase's wall seconds."""
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(workers):
+            code = ("import sys\n"
+                    f"sys.path.insert(0, {REPO!r})\n"
+                    "import torch, chip_smoke\n"
+                    f"chip_smoke.export_worker(torch, {models[i::workers]!r},"
+                    f" {root!r})\n")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=REPO,
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+        errors = []
+        for proc in procs:
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode:
+                errors.append(err[-3000:])
+    finally:
+        for proc in procs:
+            proc.kill()
+    if errors:
+        raise AssertionError(f"export workers failed: {errors}")
+    seconds = {}
+    for model in models:
+        with open(os.path.join(root, model, "export_seconds.json")) as fp:
+            seconds[model] = json.load(fp)
+    return seconds, time.perf_counter() - t0
+
+
+def mask_thresholds(outs):
+    """Each image's second-best valid score: one detection an image clears
+    it, so each response traces one polygon (0.19 s a detection on the
+    host)."""
+    th = []
+    for out in outs:
+        for scores, valid in zip(out["scores"], out["valid"]):
+            best = np.sort(scores[valid])[::-1]
+            th.append(float(best[1]) if best.size > 1 else 0.0)
+    return th
+
+
+def export_slice(torch, card, dev, model, root, export_s, captured,
+                 roi_captured, replay=None):
+    """One preset at its serving width (batch 4, bf16, ``serve_slice``'s
+    seeded model directory and 64 canvases), exported under ``root`` in
+    ``export_s`` seconds: ``ExportedModel`` (load seconds, artifact MiB),
+    then the 16 batches through the exported program and the eager model:
+    outputs equal to the bit, our kernels' launches a forward equal,
+    forward ms of each; one exported batch's K1 and K2 inputs captured.
+    For ``EXPORT_SERVED``: the subprocess ``replay`` of one batch is read,
+    and ``serve --exported`` and the live ``serve`` through the CLI take
+    the 64 requests (PNG over HTTP, 8 threads; the mask model's thresholds
+    keep one detection an image), then 8 of them one at a time, whose
+    responses (the mask model's polygons) must match.  Returns the
+    launches by path."""
+    from podtpu_torch.infer.export import EXPORT_NAME, ExportedModel
+    from podtpu_torch.infer.inference import load_inference_model
+    from podtpu_torch.ops import _build, nms
+
+    cfg = model_config(model, num_classes=4)
+    images = serve_images(cfg)
+    batches = [np.stack(images[i:i + 4]) for i in range(0, len(images), 4)]
+    name = phase_name(model, "export")
+    paths = {}
+    model_dir = os.path.join(root, model)
+    path = os.path.join(model_dir, EXPORT_NAME)
+    t0 = time.perf_counter()
+    exported = ExportedModel(path)
+    load_s = time.perf_counter() - t0
+    forward, net, _, _ = load_inference_model(model_dir, dev)
+    want, got, per = [], [], {}
+    for side, run, outs in (("eager", lambda x: eval_outputs(forward(x)),
+                             want), ("exported", exported, got)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for x in batches:
+            outs.append(run(x))
+        torch.cuda.synchronize()
+        per[side] = {k: v / len(batches) for k, v in _build.launches.items()}
+        if side == "exported":
+            paths[name] = dict(_build.launches)
+    apart = [outputs_apart(g, w) for g, w in zip(got, want)]
+    unequal = sorted({k for u, _ in apart for k in u})
+    gaps = {k: max(g.get(k, 0.0) for _, g in apart) for k in apart[0][1]}
+    roi_calls = []
+    calls = capture_nms(nms, lambda: roi_calls.extend(capture_roi_align(
+        lambda: exported(batches[0]))))
+    captured.append((name, calls))
+    roi_captured.append((name, roi_calls))
+    x = torch.from_numpy(batches[0]).to(dev)
+    with torch.no_grad():
+        exported_ms = time_ms(lambda: exported.module(x), reps=10)
+    with torch.inference_mode():
+        eager_ms = time_ms(lambda: net(x), reps=10)
+    rec = {"phase": name, "model": model_title(model),
+           "image_size": list(cfg.image_size), "batch_size": 4,
+           "compute_dtype": cfg.compute_dtype, "export_s": export_s,
+           "artifact_mib": os.path.getsize(path) / 2 ** 20,
+           "load_s": load_s, "batches": len(batches),
+           "unequal_outputs": unequal, "max_gaps": gaps,
+           "valid_per_batch": float(np.mean([o["valid"].sum()
+                                             for o in got])),
+           "launches_per_forward": per,
+           "forward_ms": {"exported": exported_ms, "eager": eager_ms},
+           "k1_calls": [list(c[0].shape[:2]) for c in calls],
+           "k2_calls": [list(c[1].shape[:2]) for c in roi_calls],
+           "card": card}
+    if model in EXPORT_SERVED:
+        rec["dispatch"] = dispatch_cost(torch, calls[0], roi_calls[0])
+        sub, sub_out = finish_replay(replay, model_dir)
+        rec["subprocess"] = dict(sub, unequal_outputs=outputs_apart(
+            sub_out, got[0])[0])
+        bodies = [png_bytes(img) for img in images]
+        thresholds = (mask_thresholds(want) if head_of(model) == "mask"
+                      else [0.05] * len(images))
+        served, results = {}, {}
+        for side in ("live", "exported"):
+            served[side], results[side] = served_through_cli(
+                torch, model_dir, side == "exported", bodies, thresholds)
+            served[side]["detections"] = sum(
+                len(r["detections"]) for r in results[side])
+            served[side]["polygons"] = sum(
+                "polygon" in d for r in results[side] for d in r["detections"])
+            paths[f"{name}_serve_{side}"] = served[side]["launches"]
+        rec["serve"] = dict(served, same_detections=results["live"]
+                            == results["exported"])
+    emit(rec)
+    del exported, net, forward
+    release(torch)
+    per_forward = {k: v for k, v in per["eager"].items() if v}
+    if per["exported"] != per["eager"] or not per_forward:
+        raise AssertionError(f"{name}: launches a forward {per}")
+    if unequal:
+        raise AssertionError(f"{name}: exported outputs {unequal} differ "
+                             f"from the eager model's (largest gaps {gaps})")
+    if model in EXPORT_SERVED:
+        sub = rec["subprocess"]
+        if sub["modules"] or sub["unequal_outputs"] or \
+                {k: v for k, v in sub["launches"].items() if v} \
+                != per_forward:
+            raise AssertionError(f"{name}: subprocess replay {sub}")
+        serve = rec["serve"]
+        if not serve["same_detections"] or (
+                head_of(model) == "mask" and not serve["live"]["polygons"]):
+            raise AssertionError(f"{name}: serve --exported {serve}")
+        for side in ("live", "exported"):
+            want_per = {k: v for k, v in serve[side]["launches_per_batch"]
+                        .items() if v}
+            if want_per != per_forward:
+                raise AssertionError(f"{name}: {side} server launched "
+                                     f"{want_per} a batch")
+    return paths
+
+
+def export_phases(torch, card, dev, captured, roi_captured):
+    """Phase 19: every preset of ``EXPORTED`` exported on the card, four
+    at a time in worker processes (``export_all``), then one at a time
+    through ``export_slice``; the ``EXPORT_SERVED`` artifacts' subprocess
+    replays start first and run beside it.  Returns the launches by
+    path."""
+    from podtpu_torch.infer.export import EXPORT_NAME
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        seconds, wall = export_all(list(EXPORTED), root)
+        emit({"phase": "export_all", "presets": len(EXPORTED),
+              "workers": 4, "wall_s": wall, "export_s": seconds,
+              "card": card})
+        replays = {}
+        try:
+            for model in [m for m in EXPORTED if m in EXPORT_SERVED]:
+                first = np.stack(serve_images(
+                    model_config(model, num_classes=4), 4))
+                replays[model] = start_replay(
+                    os.path.join(root, model, EXPORT_NAME), first,
+                    os.path.join(root, model))
+            for model in EXPORTED:
+                paths.update(export_slice(torch, card, dev, model, root,
+                                          seconds[model], captured,
+                                          roi_captured, replays.get(model)))
+        finally:
+            for proc in replays.values():
+                proc.kill()
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5227,6 +5706,14 @@ def main() -> int:
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
+
+    laps, since = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Wall seconds of the phases since the last lap, as ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - since[0]
+        since[0] = now
 
     t0 = time.perf_counter()
     _build.library()
@@ -5246,17 +5733,21 @@ def main() -> int:
                     seed=SEED + 3, case="train_b2_k512_c256_bf16")
     bwd_rec = check_roi_align_bwd(torch, roi_align, "cuda")
     check_roi_align_cases(torch, roi_align, "cuda")
+    lap("build_and_kernels")
     for model in MODELS:
         check_reference(torch, "cuda", model=model)
+    lap("references")
     captured = []
     serve = serve_slice(torch, card, "cuda", ModelConfig(num_classes=4),
                         captured)
     serve_v2 = serve_slice(torch, card, "cuda", fasterrcnn_v2_config(
         ModelConfig(num_classes=4)), captured, model="faster_v2")
+    lap("serve")
     for model in ("faster", "mask", "keypoint"):
         check_train_reference(torch, "cuda", model=model)
     check_train_reference(torch, "cuda", model="faster_v2",
                           seeds=range(SEED, SEED + 2))
+    lap("train_references")
     train = train_slice(torch, card, "cuda")
     captured.append(("train", capture_nms(nms, train.pop("replay"))))
     # Phase 16: the device-resident data and K steps per dispatch.
@@ -5266,6 +5757,7 @@ def main() -> int:
     adam_capturable_reference(torch, card, "cuda")
     cached = {"faster": cached_train_slice(
         torch, card, "cuda", streamed_images_per_s=train["images_per_s"])}
+    lap("train_and_cached")
     tmp, model_dir, driver, (eval_nms, eval_roi), first_epoch = \
         driver_phase(torch, card, "cuda", train["images_per_s"])
     windowed_driver_phase(torch, card, "cuda", first_epoch)
@@ -5280,7 +5772,9 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     tiled_out = {"launches": tiled_launches, "nms": tiled_nms,
                  "roi": tiled_roi}
+    lap("driver_infer_tiled")
     cli, (cli_nms, cli_roi) = cli_phase(torch, card, "cuda", native_built)
+    lap("cli")
     head_captured = {"k2": [], "k3": []}
     mask_train = train_slice(torch, card, "cuda", model="mask", timed=10)
     capture_step(mask_train.pop("replay"), ModelConfig().mask_pool_size,
@@ -5292,6 +5786,7 @@ def main() -> int:
     mask_driver = head_driver_phase(
         torch, card, "cuda", "mask", after=lambda d: tiled_head_phase(
             torch, card, "cuda", d, "mask", tiled_out))
+    lap("mask")
     kp_train = train_slice(torch, card, "cuda", model="keypoint", timed=10)
     kp_size = ModelConfig().keypoint_pool_size
     capture_step(kp_train.pop("replay"), kp_size, head_captured,
@@ -5303,6 +5798,7 @@ def main() -> int:
         streamed_images_per_s=kp_train["images_per_s"])
     kp_eval = head_eval_slice(torch, card, "cuda", head_captured, "keypoint")
     kp_driver = head_driver_phase(torch, card, "cuda", "keypoint")
+    lap("keypoint")
     v2_captured = {"k2": [], "k3": []}
     v2_train = train_slice(torch, card, "cuda", model="faster_v2", timed=10)
     capture_step(v2_train["replay"], ModelConfig().roi_pool_size,
@@ -5319,6 +5815,7 @@ def main() -> int:
         torch, card, "cuda", "mask_v2", timed=3,
         streamed_images_per_s=mask_v2_train["images_per_s"])
     v2_driver = v2_driver_phase(torch, card, "cuda")
+    lap("v2")
     # Phase 14: the one-stage families.
     for model in ONE_STAGE:
         check_train_reference(torch, "cuda", model=model,
@@ -5343,16 +5840,24 @@ def main() -> int:
                                               after=after)
         one_stage.update(paths)
         captured += calls
+    lap("one_stage")
     # Phase 15c: the crop classifier.
     check_classifier_reference(torch, "cuda")
     classifier_phase(torch, card, "cuda")
+    lap("classifier")
     # Phase 17: the mobile trunks.
     mobile, mobile_k2, mobile_k3, mobile_cached = mobile_phases(
         torch, card, "cuda", captured)
     cached.update(mobile_cached)
+    lap("mobile")
     # Phase 18: SSD300-VGG16 and SSDLite320-MobileNetV3.
     ssd, ssd_cached = ssd_phases(torch, card, "cuda", captured)
     cached.update(ssd_cached)
+    lap("ssd")
+    # Phase 19: every served preset exported, replayed and served.
+    export_roi = []
+    exported = export_phases(torch, card, "cuda", captured, export_roi)
+    lap("export")
     captured += [("evaluate_model", eval_nms), ("infer", infer_nms),
                  ("cli_evaluate_model", cli_nms)] + tiled_out["nms"]
     k1 = check_nms_main_path(torch, nms, captured)
@@ -5371,6 +5876,7 @@ def main() -> int:
                     check_roi_align_bwd_main_path(torch, roi_align,
                                                   v2_captured["k3"])))
     k2_mobile = check_roi_align_main_path(torch, roi_align, mobile_k2)
+    k2_export = check_roi_align_main_path(torch, roi_align, export_roi)
     k3_mobile = check_roi_align_bwd_main_path(torch, roi_align, mobile_k3)
     if not k2_14["keypoint_train_expand"]["rois_crossing_canvas"] > 0:
         raise AssertionError("no RoI of the keypoint step at "
@@ -5397,6 +5903,7 @@ def main() -> int:
                    **{k: v[name] for k, v in tiled_out["launches"].items()},
                    **{k: v.get(name, 0) for k, v in mobile.items()},
                    **{k: v.get(name, 0) for k, v in ssd.items()},
+                   **{k: v.get(name, 0) for k, v in exported.items()},
                    # The cached_train phases' timed replays.
                    **{f"{m}_cached_train": r["launches"][name]
                       for m, r in cached.items()}}
@@ -5427,7 +5934,8 @@ def main() -> int:
                  "valid_per_segment": r["valid_per_segment"],
                  "kept_per_segment": r["kept_per_segment"]}
                  for (path, k), r in k1.items()
-                 if path.startswith(("retinanet", "fcos"))},
+                 if path.startswith(("retinanet", "fcos"))
+                 and not path.endswith("export")},
              # The tiled paths' first batch of 8 tiles, each call as the
              # path made it.
              tiled={f"{path}_call{k}": {
@@ -5448,7 +5956,8 @@ def main() -> int:
                  "valid_per_segment": r["valid_per_segment"],
                  "kept_per_segment": r["kept_per_segment"]}
                  for (path, k), r in k1.items()
-                 if path.startswith("mobilenet")},
+                 if path.startswith("mobilenet")
+                 and not path.endswith("export")},
              # SSD's one segment per (image, foreground class), one call a
              # batch, each call as the path made it.
              ssd={f"{path}_call{k}": {
@@ -5457,7 +5966,15 @@ def main() -> int:
                  "bound_by": r["bound_by"],
                  "valid": r["valid"], "kept": r["kept"]}
                  for (path, k), r in k1.items()
-                 if path.startswith("ssd")}),
+                 if path.startswith("ssd") and not path.endswith("export")},
+             # The exported programs' calls, one batch of each preset, as
+             # the operator handed them to the kernel.
+             export={f"{path}_call{k}": {
+                 "shape": r["shape"], "ms": r["kernel_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "mismatches": r["mismatches"],
+                 "valid": r["valid"], "kept": r["kept"]}
+                 for (path, k), r in k1.items() if path.endswith("export")}),
         dict(name="roi_align_fwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:157",
@@ -5482,7 +5999,13 @@ def main() -> int:
              mobile={r["case"]: at(r) | {"shape": r["shape"],
                                          "plain_ms": r["plain_ms"],
                                          "bound_by": r["bound_by"]}
-                     for r in k2_mobile}),
+                     for r in k2_mobile},
+             # The exported programs' calls, one batch of each two-stage
+             # preset (at 7, and 14 for the mask and keypoint heads).
+             export={r["case"]: at(r) | {"shape": r["shape"],
+                                         "plain_ms": r["plain_ms"],
+                                         "bound_by": r["bound_by"]}
+                     for r in k2_export}),
         dict(name="roi_align_bwd", route="cuda",
              source="podtpu_torch/csrc/roi_align.cu",
              replaces="podtpu/ops/pallas/roi_align_kernel.py:226",
@@ -5500,6 +6023,9 @@ def main() -> int:
                                          "bound_by": r["bound_by"]}
                      for r in k3_mobile}),
     ]
+    lap("main_path_checks")
+    emit({"phase": "script_seconds", "by_phase": laps,
+          "total": sum(laps.values()), "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

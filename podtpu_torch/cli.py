@@ -11,16 +11,14 @@ Run as ``python -m podtpu_torch.cli <command> ...``; in Python,
 ``evaluate_model``, ``infer``, ``infer_directory``, ``infer_tiled``,
 ``train_classifier``, ``classify_crops`` and ``serve``: None means the GPU,
 and those raise when there is none.  There is no ``--device`` flag,
-so the flag surface stays the JAX package's.  The JAX package's group
-callback, which points XLA at a persistent compilation cache, has no
-counterpart.
+so the flag surface stays the JAX package's; ``export-model`` exports for
+the device its ``--platforms`` names (``cuda`` by default, or ``cpu``).
+The JAX package's group callback, which points XLA at a persistent
+compilation cache, has no counterpart.
 
-``train-object-detector``, ``infer-object-detector``, ``crop-objects``,
-``infer-object-detector-directory``, ``infer-object-detector-tiled``,
-``train-crop-classifier``, ``classify-crops`` and ``serve`` run.
-``export-model`` and ``serve --exported`` parse their flags, then raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them; so do
-the options that ``train()`` and ``infer_tiled`` do not run yet.
+Every command runs.  The options that ``train()`` and ``infer_tiled`` do
+not run yet (``--num-devices`` above 1, ``--spatial-devices`` above 1)
+raise ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -51,11 +49,6 @@ def _load_tasks(tasks, server, wsl2, api, username, password,
 def _read_labels(labels_path):
     from podtpu_torch.train.checkpoints import read_labels
     return read_labels(labels_path)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"podtpu_torch does not port {what} yet (ROADMAP.md, {item})")
 
 
 class _Command:
@@ -276,18 +269,21 @@ def build_parser() -> argparse.ArgumentParser:
     c.opt("--batch-size", type=int, default=4,
           help="Micro-batch size for coalescing concurrent requests")
     c.opt("--exported", flag=True,
-          help="Serve the model dir's exported artifact (ROADMAP.md item "
-               "17)")
+          help="Serve the model dir's exported artifact (model.pt2 from "
+               "export-model) instead of the live model")
 
     c = _Command(sub, "export-model",
                  "Export the eval forward as a self-contained artifact "
-                 "(ROADMAP.md item 17)")
+                 "(weights embedded; replays without the model code)")
     c.opt("--model-dir", default="/obj_det/models", help=_MODEL_DIR_HELP)
     c.opt("--model", prompt=_MODEL_HELP, help=_MODEL_HELP)
     c.opt("--batch-size", type=int, default=1,
           help="Fixed batch size compiled into the artifact")
-    c.opt("--platforms", help="Comma-separated lowering platforms")
-    c.opt("-o", "--output", help="Artifact path")
+    c.opt("--platforms",
+          help="The artifact's platform: cuda (default) or cpu; one per "
+               "artifact")
+    c.opt("-o", "--output",
+          help="Artifact path (default: <model dir>/model.pt2)")
     return parser
 
 
@@ -467,12 +463,22 @@ def _write_json(value, output: Optional[str]) -> None:
 
 
 def serve(a, parser, device):
-    if a.exported:
-        _not_ported("serve --exported", "item 17: export")
     from podtpu_torch.infer import server
 
     server.serve(os.path.join(a.model_dir, a.model), host=a.host,
-                 port=a.port, batch_size=a.batch_size, device=device)
+                 port=a.port, batch_size=a.batch_size, exported=a.exported,
+                 device=device)
+
+
+def export_model(a, parser, device):
+    from podtpu_torch.infer import export
+
+    platforms = ([p.strip() for p in a.platforms.split(",") if p.strip()]
+                 if a.platforms else None)
+    path = export.export_model(os.path.join(a.model_dir, a.model),
+                               batch_size=a.batch_size, platforms=platforms,
+                               out_path=a.output)
+    print(f"exported: {path}")
 
 
 RUN = {"train-object-detector": train_object_detector,
@@ -482,8 +488,8 @@ RUN = {"train-object-detector": train_object_detector,
        "infer-object-detector-tiled": infer_object_detector_tiled,
        "train-crop-classifier": train_crop_classifier,
        "classify-crops": classify_crops,
-       "serve": serve}
-NOT_PORTED = {"export-model": "item 17: export"}
+       "serve": serve,
+       "export-model": export_model}
 
 
 def subparsers(parser: argparse.ArgumentParser
@@ -499,8 +505,6 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> int:
     ``device``: where the models run, the GPU when None."""
     parser = build_parser()
     a = parser.parse_args(argv)
-    if a.command in NOT_PORTED:
-        _not_ported(f"the {a.command} command", NOT_PORTED[a.command])
     sub = subparsers(parser)[a.command]
     for dest, prompt in sub.prompts.items():
         if getattr(a, dest) is None:

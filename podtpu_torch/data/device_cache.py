@@ -29,8 +29,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from podtpu_torch.core.device import resolve_device
 from podtpu_torch.data.loader import wrap_batch_indices
-from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.ops import _build
 
 

@@ -29,6 +29,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from podtpu_torch.core.device import resolve_device
 from podtpu_torch.data.annotation import (PolygonAnnotation,
                                           RectangleAnnotation)
 from podtpu_torch.data.dataset import DetectionDataset
@@ -42,18 +43,6 @@ from podtpu_torch.models.weights import state_dict_from_flax
 from podtpu_torch.train.checkpoints import load_model
 
 IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".tiff", ".tif"}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the GPU and raises
-    when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the port on the "
-                "CPU (plain versions of the kernels)")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def load_inference_model(model_dir: str, device=None

@@ -1,9 +1,10 @@
 """Micro-batching HTTP inference server.
 
-Counterpart of ``podtpu/infer/server.py`` (live model; the exported-artifact
-mode is not ported).  Requests are decoded and fitted to the model's canvas
-on the callers' threads, coalesced into fixed-size batches by one worker
-thread, and run through the model on its device.
+Counterpart of ``podtpu/infer/server.py``.  Requests are decoded and fitted
+to the model's canvas on the callers' threads, coalesced into fixed-size
+batches by one worker thread, and run through the model on its device: the
+live model of a model directory or, with ``exported``, the artifact that
+``podtpu_torch.infer.export.export_model`` wrote there.
 
     POST /detect    body: image bytes; query: ?threshold=0.5
     ->  {"detections": [{"box": [x1,y1,x2,y2], "score": s, "label": name}],
@@ -21,6 +22,7 @@ from __future__ import annotations
 import collections
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -35,6 +37,7 @@ from podtpu_torch.data.imageio import pil_to_rgb
 from podtpu_torch.infer.inference import (load_inference_model,
                                           mask_to_annotation,
                                           split_eval_output)
+from podtpu_torch.train.checkpoints import read_labels
 
 
 class _Request:
@@ -54,26 +57,44 @@ class _Request:
 class DetectionServer:
     """Model runner + micro-batcher; the HTTP layer sits on top.
 
+    ``exported=True`` (or a path) serves the exported artifact
+    (``<model_dir>/model.pt2`` by default) instead of the live model: its
+    platform must be ``device``'s, its batch size wins, and its labels come
+    from its ``export.json`` or else from ``labels.txt``.  ``model`` is the
+    module that runs: the live detector, or the artifact's program.
     ``batch_seconds`` keeps the wall time of the most recent batches (host
     copy, forward and the copy back), ``batches_served`` their count.
     """
 
     def __init__(self, model_dir: str, batch_size: int = 4,
-                 batch_timeout_ms: float = 8.0, device=None):
+                 batch_timeout_ms: float = 8.0, device=None, exported=False):
         self.model_dir = model_dir
-        forward, self.model, cfg, self.labels = load_inference_model(
-            model_dir, device)
-        self.image_size = cfg.image_size
+        if exported:
+            from podtpu_torch.infer.export import EXPORT_NAME, ExportedModel
+            path = (exported if isinstance(exported, str)
+                    else os.path.join(model_dir, EXPORT_NAME))
+            run = ExportedModel(path, device)
+            self.model = run.module
+            self.labels = run.labels
+            if self.labels is None:
+                self.labels = read_labels(os.path.join(model_dir,
+                                                       "labels.txt"))
+            self.image_size = run.image_size
+            batch_size = run.batch_size  # fixed in the artifact
+        else:
+            forward, self.model, cfg, self.labels = load_inference_model(
+                model_dir, device)
+            self.image_size = cfg.image_size
 
-        def run(images):
-            det, masks, _ = split_eval_output(forward(images))
-            out = {"boxes": det.boxes.cpu().numpy(),
-                   "scores": det.scores.cpu().numpy(),
-                   "labels": det.labels.cpu().numpy(),
-                   "valid": det.valid.cpu().numpy()}
-            if masks is not None:
-                out["masks"] = masks.cpu().numpy()
-            return out
+            def run(images):
+                det, masks, _ = split_eval_output(forward(images))
+                out = {"boxes": det.boxes.cpu().numpy(),
+                       "scores": det.scores.cpu().numpy(),
+                       "labels": det.labels.cpu().numpy(),
+                       "valid": det.valid.cpu().numpy()}
+                if masks is not None:
+                    out["masks"] = masks.cpu().numpy()
+                return out
 
         self._forward = run
         self.batch_size = batch_size
@@ -228,12 +249,15 @@ def make_handler(server: DetectionServer):
 
 
 def serve(model_dir: str, host: str = "0.0.0.0", port: int = 8500,
-          batch_size: int = 4, device=None) -> None:
-    """Blocking entry point: serve ``model_dir`` over HTTP."""
-    runner = DetectionServer(model_dir, batch_size=batch_size, device=device)
+          batch_size: int = 4, exported=False, device=None) -> None:
+    """Blocking entry point: serve ``model_dir`` (or, with ``exported``, its
+    exported artifact) over HTTP."""
+    runner = DetectionServer(model_dir, batch_size=batch_size, device=device,
+                             exported=exported)
     httpd = ThreadingHTTPServer((host, port), make_handler(runner))
     print(f"podtpu_torch serving {model_dir} on {host}:{port} "
-          f"(batch {batch_size}, labels {runner.labels})")
+          f"(batch {runner.batch_size}, labels {runner.labels}"
+          f"{', exported' if exported else ''})", flush=True)
     try:
         httpd.serve_forever()
     finally:

@@ -11,7 +11,9 @@ with invalid boxes neither kept nor suppressing.  On a CUDA tensor
 (``csrc/nms.cu``), one launch for any number of segments, which reads the
 boxes through the score order and writes the flags back to the boxes' own
 slots; on a CPU tensor it runs :func:`nms_keep_plain`, the same function in
-plain torch.
+plain torch.  Both go through one registered operator, ``podtpu::nms_keep``
+(``torch.library``), so that ``torch.export`` names the kernel in a
+program's graph.
 """
 from __future__ import annotations
 
@@ -74,9 +76,9 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
     Without ``order`` the boxes are in score order and so is the mask.  With
     ``order`` (``[S, N]`` int64, a permutation of ``0..N-1`` per segment)
     box ``order[s, i]`` is the ``i``-th in score order, and the mask comes
-    back in the boxes' own order.  CPU tensors take :func:`nms_keep_plain`;
-    CUDA tensors launch the kernel, which reads and writes through
-    ``order`` itself.
+    back in the boxes' own order.  Runs the operator ``podtpu::nms_keep``:
+    CPU tensors take :func:`nms_keep_plain`; CUDA tensors launch the
+    kernel, which reads and writes through ``order`` itself.
     """
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [S, N, 4], got {tuple(boxes.shape)}")
@@ -90,15 +92,28 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(order.shape)} {order.dtype}")
     if any(x is not None and x.device != boxes.device for x in (valid, order)):
         raise ValueError("boxes, valid and order must be on one device")
-    if boxes.device.type == "cpu":
-        if order is None:
-            return nms_keep_plain(boxes, valid, iou_threshold)
-        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
-        kept = nms_keep_plain(sboxes, torch.gather(valid, 1, order),
-                              iou_threshold)
-        return torch.zeros_like(kept).scatter_(1, order, kept)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"boxes: unsupported device {boxes.device}")
+    return torch.ops.podtpu.nms_keep(boxes, valid, float(iou_threshold),
+                                     order)
+
+
+def _nms_cpu(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+             order: Optional[torch.Tensor]) -> torch.Tensor:
+    """``podtpu::nms_keep`` on CPU tensors: the plain version, through
+    ``order`` as the kernel reads and writes it."""
+    if order is None:
+        return nms_keep_plain(boxes, valid, iou_threshold)
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    kept = nms_keep_plain(sboxes, torch.gather(valid, 1, order),
+                          iou_threshold)
+    return torch.zeros_like(kept).scatter_(1, order, kept)
+
+
+def _nms_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+              order: Optional[torch.Tensor]) -> torch.Tensor:
+    """``podtpu::nms_keep`` on CUDA tensors: one launch of the kernel for
+    every segment."""
     _check_kernel_inputs(boxes, valid, order)
     dev = boxes.device
     s, n = valid.shape
@@ -116,6 +131,27 @@ def nms_keep_batched(boxes: torch.Tensor, valid: torch.Tensor,
     _build.check(status, "nms kernel")
     _build.count_launch(KERNEL)
     return keep
+
+
+# The operator an exported program names.  Each device's implementation
+# looks its function up when called, so that a caller may wrap
+# ``_nms_cuda`` to see the inputs the kernel gets, eager or exported.
+@torch.library.custom_op("podtpu::nms_keep", mutates_args=(),
+                         device_types="cuda")
+def _nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor,
+                 iou_threshold: float,
+                 order: Optional[torch.Tensor]) -> torch.Tensor:
+    return _nms_cuda(boxes, valid, iou_threshold, order)
+
+
+@_nms_keep_op.register_kernel("cpu")
+def _(boxes, valid, iou_threshold, order):
+    return _nms_cpu(boxes, valid, iou_threshold, order)
+
+
+@_nms_keep_op.register_fake
+def _(boxes, valid, iou_threshold, order):
+    return valid.new_empty(valid.shape)
 
 
 def sort_by_score(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

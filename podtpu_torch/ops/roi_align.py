@@ -7,12 +7,14 @@ torchvision's ``LevelMapper`` rule plus the JAX package's long-side bump
 (:func:`assign_levels`); each of ``out * out`` bins averages ``ratio**2``
 bilinear samples with torchvision's aligned=False edge rules.
 
-:func:`batched_roi_align` runs :func:`batched_roi_align_plain`, a
-plain-torch transcription that autograd differentiates, on CPU tensors.  On
-CUDA tensors it launches the hand-written forward kernel
-(``csrc/roi_align.cu``); when a level requires grad it does so inside an
-autograd function whose backward launches the backward kernel
-(:func:`batched_roi_align_backward`).  Boxes get no gradient.  The pooled
+:func:`batched_roi_align` and :func:`batched_roi_align_backward` run two
+registered operators (``torch.library``), ``podtpu::roi_align_fwd`` and
+``podtpu::roi_align_bwd``, the second the first's gradient, so that
+``torch.export`` names the kernels in a program's graph.  On CPU tensors
+they run :func:`batched_roi_align_plain`, a plain-torch transcription, and
+its vector-Jacobian product; on CUDA tensors they launch the hand-written
+forward and backward kernels (``csrc/roi_align.cu``), each after the
+kernel that assigns every box its level.  Boxes get no gradient.  The pooled
 tensor is ``[B, K, out, out, C]``, the JAX package's order, or with
 ``channels_first=True`` ``[B, K, C, out, out]``, the order torchvision's
 box head flattens; both kernels write and read either order directly.
@@ -20,7 +22,7 @@ box head flattens; both kernels write and read either order directly.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -29,6 +31,9 @@ from podtpu_torch.ops import _build
 KERNEL = "roi_align_fwd"
 KERNEL_BWD = "roi_align_bwd"
 MAX_LEVELS = 5
+# RoIs the plain version pools at a time, bounding its gathers; its
+# written-out backward takes them in the same chunks.
+ROI_CHUNK = 256
 
 
 def assign_levels(boxes: torch.Tensor, num_levels: int,
@@ -80,14 +85,13 @@ def _sample_coords(boxes: torch.Tensor, scale, out: int, ratio: int):
     return ys, xs
 
 
-def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
-                         level: torch.Tensor, strides: Sequence[int],
-                         out: int, ratio: int) -> torch.Tensor:
-    """``[K, out, out, C]`` for one image's ``[Hl, Wl, C]`` levels."""
+def _image_samples(sizes, boxes: torch.Tensor, level: torch.Tensor,
+                   strides: Sequence[int], out: int, ratio: int):
+    """Each RoI's bilinear corners over one image's levels of ``(Hl, Wl)``
+    ``sizes``, flattened into one row table: four ``(rows [K, n, n],
+    y weights [K, n, 1, 1], x weights [K, 1, n, 1])``, corner by corner,
+    and the samples inside the level ``[K, n, n, 1]``."""
     dev = boxes.device
-    c = levels[0].shape[-1]
-    flat = torch.cat([f.reshape(-1, c) for f in levels])
-    sizes = [(f.shape[0], f.shape[1]) for f in levels]
     offsets, o = [], 0
     for hgt, wid in sizes:
         offsets.append(o)
@@ -102,9 +106,29 @@ def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
     ylo, yhi, wy_lo, wy_hi, y_in = _interp_axis(ys, height[:, None])
     xlo, xhi, wx_lo, wx_hi, x_in = _interp_axis(xs, width[:, None])
 
-    def gather(yi, xi):
-        rows = (offset[:, None, None] + yi[:, :, None] * width[:, None, None]
+    def rows(yi, xi):
+        return (offset[:, None, None] + yi[:, :, None] * width[:, None, None]
                 + xi[:, None, :])
+
+    wy_lo_, wy_hi_ = wy_lo[:, :, None, None], wy_hi[:, :, None, None]
+    wx_lo_, wx_hi_ = wx_lo[:, None, :, None], wx_hi[:, None, :, None]
+    corners = [(rows(ylo, xlo), wy_lo_, wx_lo_), (rows(ylo, xhi), wy_lo_,
+                                                   wx_hi_),
+               (rows(yhi, xlo), wy_hi_, wx_lo_), (rows(yhi, xhi), wy_hi_,
+                                                   wx_hi_)]
+    return corners, y_in[:, :, None, None] & x_in[:, None, :, None]
+
+
+def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
+                         level: torch.Tensor, strides: Sequence[int],
+                         out: int, ratio: int) -> torch.Tensor:
+    """``[K, out, out, C]`` for one image's ``[Hl, Wl, C]`` levels."""
+    c = levels[0].shape[-1]
+    flat = torch.cat([f.reshape(-1, c) for f in levels])
+    corners, inside = _image_samples([f.shape[:2] for f in levels], boxes,
+                                     level, strides, out, ratio)
+
+    def gather(rows):
         # index_select, not flat[rows]: its backward (index_add_) sums in
         # index order, where indexing's accumulating index_put_ adds from
         # several CPU threads in no fixed order.
@@ -112,14 +136,34 @@ def _roi_align_one_image(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
             *rows.shape, c)                                        # [K, n, n, C]
 
     # float32 weights promote bf16 features to float32, as in JAX.
-    wy_lo_, wy_hi_ = wy_lo[:, :, None, None], wy_hi[:, :, None, None]
-    wx_lo_, wx_hi_ = wx_lo[:, None, :, None], wx_hi[:, None, :, None]
-    val = (gather(ylo, xlo) * wy_lo_ * wx_lo_
-           + gather(ylo, xhi) * wy_lo_ * wx_hi_
-           + gather(yhi, xlo) * wy_hi_ * wx_lo_
-           + gather(yhi, xhi) * wy_hi_ * wx_hi_)
-    val = val * (y_in[:, :, None, None] & x_in[:, None, :, None])
+    (r1, a1, b1), (r2, a2, b2), (r3, a3, b3), (r4, a4, b4) = corners
+    val = (gather(r1) * a1 * b1 + gather(r2) * a2 * b2
+           + gather(r3) * a3 * b3 + gather(r4) * a4 * b4)
+    val = val * inside
     return val.reshape(-1, out, ratio, out, ratio, c).mean(dim=(2, 4))
+
+
+def _roi_align_one_image_backward(grad: torch.Tensor, sizes, c: int,
+                                  boxes: torch.Tensor, level: torch.Tensor,
+                                  strides: Sequence[int], out: int,
+                                  ratio: int) -> torch.Tensor:
+    """The gradient of :func:`_roi_align_one_image` for ``grad [K, out,
+    out, C]``, as one flat float32 ``[sum(Hl * Wl), C]`` table: each
+    corner's weighted gradient added into its rows (``index_add_``), the
+    products, sums and their order autograd's."""
+    corners, inside = _image_samples(sizes, boxes, level, strides, out,
+                                     ratio)
+    k, n = boxes.shape[0], out * ratio
+    g = (grad[:, :, None, :, None, :].expand(k, out, ratio, out, ratio, c)
+         / (ratio * ratio)).reshape(k, n, n, c) * inside
+    cells = sum(h * w for h, w in sizes)
+    total = None
+    for rows, wy, wx in reversed(corners):
+        part = torch.zeros((cells, c), dtype=grad.dtype,
+                           device=grad.device).index_add_(
+            0, rows.reshape(-1), (g * wx * wy).reshape(-1, c))
+        total = part if total is None else total + part
+    return total
 
 
 def batched_roi_align_plain(features: Sequence[torch.Tensor],
@@ -127,7 +171,7 @@ def batched_roi_align_plain(features: Sequence[torch.Tensor],
                             output_size: int = 7, sampling_ratio: int = 2,
                             canonical_scale: float = 224.0,
                             canonical_level: int = 4, min_level: int = 2,
-                            roi_chunk: int = 256,
+                            roi_chunk: int = ROI_CHUNK,
                             channels_first: bool = False) -> torch.Tensor:
     """Plain-torch multi-level RoIAlign: ``[B, Hl, Wl, C]`` levels and
     ``[B, K, 4]`` boxes -> ``[B, K, out, out, C]`` (``[B, K, C, out, out]``
@@ -350,30 +394,6 @@ def _backward_kernel(grad_out, shapes, dtype, boxes, level, strides,
     return grads
 
 
-class _RoIAlignFunction(torch.autograd.Function):
-    """Forward kernel K2 and backward kernel K3 as one differentiable op
-    over ``(boxes, level, *features)``; only the features get gradients."""
-
-    @staticmethod
-    def forward(ctx, boxes, level, strides, output_size, sampling_ratio,
-                channels_first, *features):
-        ctx.save_for_backward(boxes, level)
-        ctx.meta = ([tuple(f.shape) for f in features], features[0].dtype,
-                    strides, output_size, sampling_ratio, channels_first)
-        return _forward_kernel(features, boxes, level, strides, output_size,
-                               sampling_ratio, channels_first)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        boxes, level = ctx.saved_tensors
-        shapes, dtype, strides, output_size, ratio, channels_first = ctx.meta
-        grads = _backward_kernel(grad_out, shapes, dtype, boxes, level,
-                                 strides, output_size, ratio, channels_first)
-        grads = [g if need else None
-                 for g, need in zip(grads, ctx.needs_input_grad[6:])]
-        return (None, None, None, None, None, None, *grads)
-
-
 def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                       strides: Sequence[int], output_size: int = 7,
                       sampling_ratio: int = 2, canonical_scale: float = 224.0,
@@ -384,30 +404,20 @@ def batched_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     or, with ``channels_first``, ``[B, K, C, out, out]`` (the order the box
     head flattens).
 
-    CPU tensors take :func:`batched_roi_align_plain`; CUDA tensors launch the
-    forward kernel (float32 or bfloat16 levels with a channel count that is
-    a multiple of 8, float32 boxes, ``output_size`` 7 or 14) and, when a
-    level requires grad, the backward kernel in the backward pass.
+    Runs the operator ``podtpu::roi_align_fwd``: CPU tensors take
+    :func:`batched_roi_align_plain`; CUDA tensors launch the forward kernel
+    (float32 or bfloat16 levels with a channel count that is a multiple of
+    8, float32 boxes, ``output_size`` 7 or 14).  Its gradient is
+    ``podtpu::roi_align_bwd`` (:func:`batched_roi_align_backward`): on the
+    card the backward kernel.  Boxes get no gradient.
     """
-    if boxes.device.type == "cpu":
-        return batched_roi_align_plain(
-            features, boxes, strides, output_size, sampling_ratio,
-            canonical_scale, canonical_level, min_level,
-            channels_first=channels_first)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {boxes.device}")
-    _check_inputs(features, boxes, strides, output_size, sampling_ratio)
-    boxes = boxes.detach().contiguous()
-    level = _assign_levels_kernel(boxes, len(features), canonical_scale,
-                                  canonical_level, min_level,
-                                  float(strides[0]))
-    strides = tuple(int(s) for s in strides)
-    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
-        return _RoIAlignFunction.apply(boxes, level, strides, output_size,
-                                       sampling_ratio, channels_first,
-                                       *features)
-    return _forward_kernel(features, boxes, level, strides, output_size,
-                           sampling_ratio, channels_first)
+    return torch.ops.podtpu.roi_align_fwd(
+        list(features), boxes.detach().contiguous(),
+        [int(s) for s in strides], output_size, sampling_ratio,
+        float(canonical_scale), int(canonical_level), int(min_level),
+        bool(channels_first))
 
 
 def batched_roi_align_backward_plain(
@@ -418,21 +428,36 @@ def batched_roi_align_backward_plain(
         channels_first: bool = False):
     """Level gradients of :func:`batched_roi_align_plain` for the upstream
     gradient ``grad_out [B, K, out, out, C]`` (``[B, K, C, out, out]`` with
-    ``channels_first``), by autograd, computed in float32 and returned in
-    the levels' dtype.  The map is linear in the features, so only their
-    shapes matter."""
-    zeros = [torch.zeros(f.shape, dtype=torch.float32, device=f.device,
-                         requires_grad=True) for f in features]
-    with torch.enable_grad():
-        out = batched_roi_align_plain(zeros, boxes.detach(), strides,
-                                      output_size, sampling_ratio,
-                                      canonical_scale, canonical_level,
-                                      min_level,
-                                      channels_first=channels_first)
-        grads = torch.autograd.grad(out, zeros, grad_out.float(),
-                                    allow_unused=True)
-    return [torch.zeros_like(z) if g is None else g.to(f.dtype)
-            for g, z, f in zip(grads, zeros, features)]
+    ``channels_first``), computed in float32 and returned in the levels'
+    dtype.  The map is linear in the features, so only their shapes
+    matter.  Written out, not taken by autograd, so that it also runs
+    inside an operator's implementation, where autograd records nothing;
+    its sums are autograd's, in autograd's order, so the bits are those of
+    autograd through :func:`batched_roi_align_plain`."""
+    boxes = boxes.detach()
+    level = assign_levels(boxes, len(strides), canonical_scale,
+                          canonical_level, min_level,
+                          base_stride=float(strides[0]))
+    g = grad_out.float()
+    if channels_first:
+        g = g.permute(0, 1, 3, 4, 2)
+    c = features[0].shape[-1]
+    sizes = [tuple(f.shape[1:3]) for f in features]
+    grads = [torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+             for f in features]
+    for b in range(boxes.shape[0]):
+        total = None
+        for i in reversed(range(0, boxes.shape[1], ROI_CHUNK)):
+            part = _roi_align_one_image_backward(
+                g[b, i:i + ROI_CHUNK], sizes, c, boxes[b, i:i + ROI_CHUNK],
+                level[b, i:i + ROI_CHUNK], strides, output_size,
+                sampling_ratio)
+            total = part if total is None else total + part
+        if total is None:
+            continue
+        for grad, part in zip(grads, total.split([h * w for h, w in sizes])):
+            grad[b] = part.reshape(grad.shape[1:])
+    return [grad.to(f.dtype) for grad, f in zip(grads, features)]
 
 
 def batched_roi_align_backward(
@@ -445,29 +470,132 @@ def batched_roi_align_backward(
     :func:`batched_roi_align` for the upstream gradient ``grad_out``, laid
     out as that function's output.
 
-    CPU tensors take :func:`batched_roi_align_backward_plain`; CUDA tensors
-    launch the backward kernel, which gathers each tile of each level in
-    float32 in a fixed order (two runs give the same bits) and writes it
-    once in the levels' dtype.
+    Runs the operator ``podtpu::roi_align_bwd``: CPU tensors take
+    :func:`batched_roi_align_backward_plain`; CUDA tensors launch the
+    backward kernel, which gathers each tile of each level in float32 in a
+    fixed order (two runs give the same bits) and writes it once in the
+    levels' dtype.
     """
-    if boxes.device.type == "cpu":
-        return batched_roi_align_backward_plain(
-            grad_out, features, boxes, strides, output_size, sampling_ratio,
-            canonical_scale, canonical_level, min_level,
-            channels_first=channels_first)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {boxes.device}")
+    return torch.ops.podtpu.roi_align_bwd(
+        grad_out, list(features), boxes.detach().contiguous(),
+        [int(s) for s in strides], output_size, sampling_ratio,
+        float(canonical_scale), int(canonical_level), int(min_level),
+        bool(channels_first))
+
+
+# -- the operators -----------------------------------------------------------
+# Each device's implementation looks its function up when called, so that a
+# caller may wrap ``_roi_align_cuda`` or ``_backward_kernel`` to see what
+# the kernels get, eager or in an exported program.
+
+def _roi_align_cuda(features, boxes, strides, output_size, sampling_ratio,
+                    canonical_scale, canonical_level, min_level,
+                    channels_first):
+    """``podtpu::roi_align_fwd`` on CUDA tensors: the level kernel, then
+    the forward kernel."""
+    _check_inputs(features, boxes, strides, output_size, sampling_ratio)
+    level = _assign_levels_kernel(boxes, len(features), canonical_scale,
+                                  canonical_level, min_level,
+                                  float(strides[0]))
+    return _forward_kernel(features, boxes, level, strides, output_size,
+                           sampling_ratio, channels_first)
+
+
+def _roi_align_bwd_cuda(grad_out, features, boxes, strides, output_size,
+                        sampling_ratio, canonical_scale, canonical_level,
+                        min_level, channels_first):
+    """``podtpu::roi_align_bwd`` on CUDA tensors: the level kernel, then
+    the backward kernel."""
     _check_inputs(features, boxes, strides, output_size, sampling_ratio)
     b, k = boxes.shape[:2]
-    c = features[0].shape[-1]
-    want = pooled_shape(b, k, c, output_size, channels_first)
+    want = pooled_shape(b, k, features[0].shape[-1], output_size,
+                        channels_first)
     if tuple(grad_out.shape) != want or grad_out.device != boxes.device:
         raise ValueError(f"grad_out must be {list(want)} on {boxes.device}, "
                          f"got {list(grad_out.shape)} on {grad_out.device}")
-    boxes = boxes.detach().contiguous()
     level = _assign_levels_kernel(boxes, len(features), canonical_scale,
                                   canonical_level, min_level,
                                   float(strides[0]))
     return _backward_kernel(grad_out, [tuple(f.shape) for f in features],
                             features[0].dtype, boxes, level, strides,
                             output_size, sampling_ratio, channels_first)
+
+
+@torch.library.custom_op("podtpu::roi_align_fwd", mutates_args=(),
+                         device_types="cuda")
+def _roi_align_fwd_op(features: List[torch.Tensor], boxes: torch.Tensor,
+                      strides: List[int], output_size: int,
+                      sampling_ratio: int, canonical_scale: float,
+                      canonical_level: int, min_level: int,
+                      channels_first: bool) -> torch.Tensor:
+    return _roi_align_cuda(features, boxes, strides, output_size,
+                           sampling_ratio, canonical_scale, canonical_level,
+                           min_level, channels_first)
+
+
+@_roi_align_fwd_op.register_kernel("cpu")
+def _(features, boxes, strides, output_size, sampling_ratio,
+      canonical_scale, canonical_level, min_level, channels_first):
+    return batched_roi_align_plain(
+        features, boxes, strides, output_size, sampling_ratio,
+        canonical_scale, canonical_level, min_level,
+        channels_first=channels_first)
+
+
+@_roi_align_fwd_op.register_fake
+def _(features, boxes, strides, output_size, sampling_ratio,
+      canonical_scale, canonical_level, min_level, channels_first):
+    b, k = boxes.shape[:2]
+    return features[0].new_empty(pooled_shape(
+        b, k, features[0].shape[-1], output_size, channels_first))
+
+
+@torch.library.custom_op("podtpu::roi_align_bwd", mutates_args=(),
+                         device_types="cuda")
+def _roi_align_bwd_op(grad_out: torch.Tensor, features: List[torch.Tensor],
+                      boxes: torch.Tensor, strides: List[int],
+                      output_size: int, sampling_ratio: int,
+                      canonical_scale: float, canonical_level: int,
+                      min_level: int,
+                      channels_first: bool) -> List[torch.Tensor]:
+    return _roi_align_bwd_cuda(grad_out, features, boxes, strides,
+                               output_size, sampling_ratio, canonical_scale,
+                               canonical_level, min_level, channels_first)
+
+
+@_roi_align_bwd_op.register_kernel("cpu")
+def _(grad_out, features, boxes, strides, output_size, sampling_ratio,
+      canonical_scale, canonical_level, min_level, channels_first):
+    return batched_roi_align_backward_plain(
+        grad_out, features, boxes, strides, output_size, sampling_ratio,
+        canonical_scale, canonical_level, min_level, channels_first)
+
+
+@_roi_align_bwd_op.register_fake
+def _(grad_out, features, boxes, strides, output_size, sampling_ratio,
+      canonical_scale, canonical_level, min_level, channels_first):
+    return [f.new_empty(f.shape) for f in features]
+
+
+def _setup_backward(ctx, inputs, output):
+    features, boxes = inputs[:2]
+    ctx.save_for_backward(boxes, *features)
+    ctx.args = inputs[2:]
+
+
+def _roi_align_grad(ctx, grad_out):
+    """The levels' gradients through ``podtpu::roi_align_bwd``: the
+    backward kernel on the card.  Boxes and the other arguments get
+    none."""
+    boxes, *features = ctx.saved_tensors
+    grads = torch.ops.podtpu.roi_align_bwd(grad_out, features, boxes,
+                                           *ctx.args)
+    grads = [g if need else None
+             for g, need in zip(grads, ctx.needs_input_grad[0])]
+    return (grads,) + (None,) * (1 + len(ctx.args))
+
+
+_roi_align_fwd_op.register_autograd(_roi_align_grad,
+                                    setup_context=_setup_backward)

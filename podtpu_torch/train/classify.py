@@ -34,9 +34,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from podtpu_torch.core.device import resolve_device
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.data.imageio import pil_to_rgb
-from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.classifier import CropClassifier, init_classifier
 from podtpu_torch.models.weights import (classifier_flax_from_state_dict,
                                          classifier_state_dict_from_flax)

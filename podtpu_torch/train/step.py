@@ -14,10 +14,10 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from podtpu_torch.core.config import Config
+from podtpu_torch.core.device import resolve_device
 from podtpu_torch.data.presets import (AugmentDraws, augment_batch_policy,
                                        draw_policy, get_policy,
                                        policy_kwargs)
-from podtpu_torch.infer.inference import resolve_device
 from podtpu_torch.models.detector import ModelDraws, draw_model
 from podtpu_torch.models.resnet import batch_statistics
 from podtpu_torch.ops.image_ops import copy_paste_batch

@@ -50,6 +50,7 @@ from podtpu_torch.core.config import (COCO_17_HFLIP_INDS, Config,
                                       model_config_from_dict,
                                       retinanet_config, retinanet_v2_config,
                                       ssd_config, ssdlite_config)
+from podtpu_torch.core.device import resolve_device
 from podtpu_torch.core.logging import MetricLogger, is_main_process
 from podtpu_torch.core.profiling import start_trace, stop_trace
 from podtpu_torch.data.dataset import DetectionDataset, train_test_split
@@ -62,7 +63,7 @@ from podtpu_torch.data.device_cache import (DeviceDataCache, DeviceLoader,
                                             to_device)
 from podtpu_torch.data.loader import Loader
 from podtpu_torch.data.project import Project
-from podtpu_torch.infer.inference import load_inference_model, resolve_device
+from podtpu_torch.infer.inference import load_inference_model
 from podtpu_torch.models.detector import init_parameters, make_detector
 from podtpu_torch.models.resnet import FrozenBatchNorm2d
 from podtpu_torch.models.weights import load_pretrained

@@ -4,16 +4,16 @@
   counterpart with the same option strings, default, type, choices, flag
   and prompt.
 * Dispatch: ``train``, ``evaluate_model``, ``infer``, ``infer_directory``,
-  ``crop_objects`` and ``serve`` of both packages are replaced by
-  recorders, the same argv goes through click's ``CliRunner`` and the port's
-  ``main`` against one fake CVAT server (``tests/fake_cvat.py``), and the
-  recorded calls must be equal (configs as ``dataclasses.asdict``, projects
-  box by box), as must the PATCH bodies the upload sends; the invalid
-  invocations are rejected by both.
+  ``crop_objects``, ``serve`` and ``export_model`` of both packages are
+  replaced by recorders, the same argv goes through click's ``CliRunner``
+  and the port's ``main`` against one fake CVAT server
+  (``tests/fake_cvat.py``), and the recorded calls must be equal (configs
+  as ``dataclasses.asdict``, projects box by box), as must the PATCH
+  bodies the upload sends; the invalid invocations are rejected by both.
 * End to end on the CPU: the port alone trains at a 128 canvas for one
   epoch, uploads its detections with a PATCH, writes class-sorted crops and
   runs the directory command, as ``tests/test_cli_e2e.py`` does for JAX.
-* The commands the port does not have yet raise ``NotImplementedError``
+* The options the port does not run yet raise ``NotImplementedError``
   naming their ROADMAP.md items; the CLI imports neither click nor requests.
 """
 import argparse
@@ -30,11 +30,13 @@ from PIL import Image
 
 import podtpu.cli as jax_cli
 import podtpu.infer.crop as jax_crop
+import podtpu.infer.export as jax_export
 import podtpu.infer.inference as jax_inference
 import podtpu.infer.server as jax_server
 import podtpu.train.train as jax_train
 import podtpu_torch.cli as port_cli
 import podtpu_torch.infer.crop as port_crop
+import podtpu_torch.infer.export as port_export
 import podtpu_torch.infer.inference as port_inference
 import podtpu_torch.infer.server as port_server
 import podtpu_torch.train.train as port_train
@@ -177,14 +179,16 @@ def recorders(monkeypatch):
         def record(*args, **kwargs):
             calls[side].append((name, [view(a) for a in args],
                                 {k: view(v) for k, v in kwargs.items()}))
+            if returns == "artifact":
+                return kwargs["out_path"] or f"{args[0]}/artifact"
             return args[0] if returns == "first" else returns
         return record
 
     for side, mods in (("jax", (jax_train, jax_inference, jax_crop,
-                                jax_server)),
+                                jax_server, jax_export)),
                        ("port", (port_train, port_inference, port_crop,
-                                 port_server))):
-        train_mod, inference, crop, server = mods
+                                 port_server, port_export))):
+        train_mod, inference, crop, server, export = mods
         monkeypatch.setattr(train_mod, "train", recorder(side, "train"))
         monkeypatch.setattr(train_mod, "evaluate_model",
                             recorder(side, "evaluate_model"))
@@ -196,6 +200,8 @@ def recorders(monkeypatch):
         monkeypatch.setattr(crop, "crop_objects",
                             recorder(side, "crop_objects"))
         monkeypatch.setattr(server, "serve", recorder(side, "serve"))
+        monkeypatch.setattr(export, "export_model",
+                            recorder(side, "export_model", "artifact"))
     monkeypatch.setattr(jax_cli, "now_as_str", lambda: "NOW")
     monkeypatch.setattr(port_cli, "now_as_str", lambda: "NOW")
     return calls
@@ -218,11 +224,9 @@ def run_both(argv, calls, state, input=None, monkeypatch=None):
         code = exc.code
     port_patches = state.patches[before:]
     for name, args, kwargs in calls["port"]:
-        if name != "crop_objects":
+        # An artifact's device is its platform, not the CLI's device.
+        if name not in ("crop_objects", "export_model"):
             assert kwargs.pop("device") == "cpu", name
-    for name, args, kwargs in calls["jax"]:
-        if name == "serve":  # the port's serve has no exported artifact
-            assert kwargs.pop("exported") is False
     return result, code, jax_patches, port_patches
 
 
@@ -317,8 +321,13 @@ def test_infer_dispatch_and_upload(cvat_env, recorders):
      "--batch-size", "4"],
     ["serve", "--model-dir", "{models}", "--model", "m", "--host",
      "127.0.0.1", "--port", "9999", "--batch-size", "8"],
+    ["serve", "--model-dir", "{models}", "--model", "m", "--exported"],
+    ["export-model", "--model-dir", "{models}", "--model", "m"],
+    ["export-model", "--model-dir", "{models}", "--model", "m",
+     "--batch-size", "4", "--platforms", "cpu, cuda", "-o",
+     "{tmp}/m.pt2"],
 ])
-def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
+def test_other_dispatch(cvat_env, recorders, tmp_path, argv, capsys):
     argv = [a.format(tmp=tmp_path, raw=cvat_env["raw"],
                      models=cvat_env["models"]) for a in argv]
     if argv[0] == "crop-objects":
@@ -326,6 +335,11 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
     result, code, _, _ = run_both(argv, recorders, cvat_env["state"])
     assert result.exit_code == 0 and code == 0, result.output
     assert recorders["port"] == recorders["jax"] and recorders["port"]
+    if argv[0] == "export-model":
+        (_, args, kwargs), = recorders["port"]
+        path = kwargs["out_path"] or f"{args[0]}/artifact"
+        assert f"exported: {path}" in result.output
+        assert f"exported: {path}" in capsys.readouterr().out
 
 
 # -- stubs and imports --------------------------------------------------------
@@ -333,8 +347,6 @@ def test_other_dispatch(cvat_env, recorders, tmp_path, argv):
 @pytest.mark.parametrize("argv, item", [
     (["infer-object-detector-tiled", "-i", "scan.tif", "--model-dir",
       "{models}", "--model", "m", "--spatial-devices", "2"], "item 20"),
-    (["export-model", "--model", "m", "--platforms", "cuda"], "item 17"),
-    (["serve", "--model", "m", "--exported"], "item 17"),
     (["train-object-detector", "-t", "5", "--num-devices", "2"], "item 18"),
 ])
 def test_unported_raise(cvat_env, tmp_path, argv, item):

@@ -108,36 +108,33 @@ class TestBackwardLayout:
             assert torch.equal(x, w)
 
     def test_autograd_function_carries_the_layout(self, monkeypatch):
-        """The autograd function with the kernels swapped for their plain
-        versions, channels first: the upstream gradient arrives in the
-        output's layout and the level gradients equal XLA's."""
+        """The registered operator's gradient, channels first: the forward
+        and ``podtpu::roi_align_bwd`` run in that layout, the upstream
+        gradient arrives in the output's layout and the level gradients
+        equal XLA's."""
         rng = np.random.default_rng(54)
         feats = feature_levels(54, 2)
         rois = rois_for(54, 2, n=5)
         g = rng.normal(size=(2, rois.shape[1], 7, 7, 8)).astype(np.float32)
         seen = {}
+        fwd = roi_align.batched_roi_align_plain
+        bwd = roi_align.batched_roi_align_backward_plain
 
-        def fwd(features, bx, level, strides, out, ratio, channels_first):
+        def fwd_seen(*args, channels_first=False, **kwargs):
             seen["fwd"] = channels_first
-            return roi_align.batched_roi_align_plain(
-                [f.detach() for f in features], bx, strides, out, ratio,
-                channels_first=channels_first)
+            return fwd(*args, channels_first=channels_first, **kwargs)
 
-        def bwd(grad_out, shapes, dtype, bx, level, strides, out, ratio,
-                channels_first):
-            seen["bwd"] = (channels_first, tuple(grad_out.shape))
-            zeros = [torch.zeros(s, dtype=dtype) for s in shapes]
-            return roi_align.batched_roi_align_backward_plain(
-                grad_out, zeros, bx, strides, out, ratio,
-                channels_first=channels_first)
+        def bwd_seen(grad_out, *args):
+            seen["bwd"] = (args[-1], tuple(grad_out.shape))
+            return bwd(grad_out, *args)
 
-        monkeypatch.setattr(roi_align, "_forward_kernel", fwd)
-        monkeypatch.setattr(roi_align, "_backward_kernel", bwd)
+        monkeypatch.setattr(roi_align, "batched_roi_align_plain", fwd_seen)
+        monkeypatch.setattr(roi_align, "batched_roi_align_backward_plain",
+                            bwd_seen)
         _build.reset_launches()
         tf = [t(f).requires_grad_() for f in feats]
-        level = roi_align.assign_levels(t(rois), 4)
-        out = roi_align._RoIAlignFunction.apply(t(rois), level, STRIDES, 7,
-                                                2, True, *tf)
+        out = roi_align.batched_roi_align(tf, t(rois), STRIDES, 7, 2,
+                                          channels_first=True)
         assert out.shape == (2, rois.shape[1], 8, 7, 7)
         out.backward(t(np.ascontiguousarray(g.transpose(0, 1, 4, 2, 3))))
         assert seen == {"fwd": True,

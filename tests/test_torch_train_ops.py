@@ -302,9 +302,10 @@ class TestRoIAlignBackward:
         for a, x in zip(got, tf):
             np.testing.assert_allclose(a.numpy(), x.grad.numpy(), atol=1e-6)
 
-    def test_autograd_function_wiring(self, monkeypatch):
-        """The autograd function that carries the two kernels on the card,
-        run here with the kernels swapped for their plain versions: the
+    def test_autograd_function_wiring(self):
+        """The registered operators that carry the two kernels on the card
+        (``podtpu::roi_align_fwd`` and its gradient
+        ``podtpu::roi_align_bwd``), run here on their plain versions: the
         level gradients reach the levels in their dtype and layout, the
         boxes get none, and the launch counters stay at zero."""
         rng = np.random.default_rng(24)
@@ -312,30 +313,14 @@ class TestRoIAlignBackward:
         rois = np.stack([np.concatenate([canonical_rois(rng, 5), EDGE_ROIS])
                          for _ in range(2)])
         g = rng.normal(size=(2, rois.shape[1], 7, 7, 8)).astype(np.float32)
-
-        def fwd(features, bx, level, strides, out, ratio, channels_first):
-            return roi_align.batched_roi_align_plain(
-                [f.detach() for f in features], bx, strides, out, ratio,
-                channels_first=channels_first)
-
-        def bwd(grad_out, shapes, dtype, bx, level, strides, out, ratio,
-                channels_first):
-            zeros = [torch.zeros(s, dtype=dtype) for s in shapes]
-            return roi_align.batched_roi_align_backward_plain(
-                grad_out, zeros, bx, strides, out, ratio,
-                channels_first=channels_first)
-
-        monkeypatch.setattr(roi_align, "_forward_kernel", fwd)
-        monkeypatch.setattr(roi_align, "_backward_kernel", bwd)
         _build.reset_launches()
         tb = t(rois).requires_grad_()
         tf = [t(f).requires_grad_() for f in feats]
-        level = roi_align.assign_levels(tb.detach(), 4)
-        out = roi_align._RoIAlignFunction.apply(tb.detach(), level, STRIDES,
-                                                7, 2, False, *tf)
+        out = roi_align.batched_roi_align(tf, tb, STRIDES, 7, 2)
         out.backward(t(g))
         want = xla_grad(feats, rois, g)
         for x, w in zip(tf, want):
+            assert x.grad.dtype == x.dtype and x.grad.shape == x.shape
             np.testing.assert_allclose(x.grad.numpy(), w, atol=1e-3)
         assert tb.grad is None and not _build.launches
 
